@@ -1,0 +1,3 @@
+from .devices import resolve_device
+
+__all__ = ["resolve_device"]
