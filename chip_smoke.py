@@ -7,22 +7,39 @@ Needs one CUDA card and nvcc; exits non-zero without them. Phases:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off for
    the float32 phases;
-2. build: nvcc builds the epilogue kernels from csrc/epilogue.cu;
-3. kernels: each kernel against its plain PyTorch version at the 15
-   call shapes of the main path (batch 8, bf16), with its time (CUDA
-   events, median of 20 launches), the plain version's time and the
-   memory bound of the call;
-4. model parity: `apply_fast` in float32 on the card (kernels) against
+2. build: nvcc builds the kernels from csrc/epilogue.cu and
+   csrc/pool_s2d.cu, one nvcc per source, started together, into one
+   library;
+3. kernels: the two epilogue kernels against their plain PyTorch
+   versions at the 15 call shapes of the inference path (batch 8, bf16),
+   with their time (CUDA events, median of 20 launches), the plain
+   version's time and the memory bound of the call;
+4. train kernels: `phased_normalize` at the 5 phased shapes and the
+   fused pool backward at the 2 pool shapes of the train step (batch 8,
+   bf16), the same way, and the pool backward against autograd of
+   `amax` (the library call);
+5. model parity: `apply_fast` in float32 on the card (kernels) against
    the same on the CPU (plain versions) and against the reference-layout
    `apply` on the card, 64^3 tiles, batch 2, at the tolerances of
    tests/test_fast_path.py;
-5. main path: `SlidingWindowRunner` (cube 128, step 64, batch 8, bf16,
+6. main path: `SlidingWindowRunner` (cube 128, step 64, batch 8, bf16,
    full-width random weights from a seed) over a seeded synthetic
    320x256x320 int16 CT phantom with a tubular airway tree: one warm-up
    volume, then TIMED_VOLUMES timed volumes (median reported); the
    kernels' launch counts over the timed volumes must read 10 (gathered)
    and 5 (phased) per tile batch;
-6. a `kernels` JSON line, then the card line, then the last line
+7. train parity: one float32 stage-1 train step (64^3 crops, batch 2)
+   on the card (kernels) against the same step on the CPU (plain
+   versions), same weights and DropLayer draws: the loss and every
+   gradient at rtol 5e-3, atol 5e-4 (tests/test_fast_path.py), each
+   gradient leaf within 2e-2 of its own norm (tests/test_torch_train.py),
+   and the launches of the step, 10/5/5/2;
+8. train path: `make_train_step(stage=1)` at full width, bf16, AdamW, on
+   8 crops of 128^3 cut from the phantom (dual-windowed image, airway
+   lumen label): one warm-up step, then TRAIN_STEPS timed steps; the
+   launches must read 10/5/5/2 per step, every loss must be finite and
+   the batch's loss under one fixed set of DropLayer draws must fall;
+9. a `kernels` JSON line, then the card line, then the last line
    `{"ok": true, "device": {...}}`.
 
 Any failure raises and exits non-zero.
@@ -47,13 +64,24 @@ from se_unet_airseg_tpu_torch.models import (
     se_unet_apply,
     se_unet_apply_fast,
 )
+from se_unet_airseg_tpu_torch.models.se_unet import _leaves, _tree_map
+from se_unet_airseg_tpu_torch.ops import build_kernels, hu_dual_window, launch_counts
 from se_unet_airseg_tpu_torch.ops import epilogue_s2d as eps
+from se_unet_airseg_tpu_torch.ops import reset_launch_counts
+from se_unet_airseg_tpu_torch.ops import s2d as ps2d
+from se_unet_airseg_tpu_torch.train import (
+    create_train_state,
+    make_loss_fn,
+    make_optimizer,
+    make_train_step,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 BATCH = 8
 SHAPE = (320, 256, 320)
 TIMED_VOLUMES = 5
+TRAIN_STEPS = 10
 # (block, s2d grid n, 8C, gates) of every epilogue call per tile batch of
 # 128^3 tiles (n = 64 at the full-resolution level, 32 at the 1/2 level)
 GATHERED = [("ec1", 64, 64, 1), ("ec2", 64, 128, 1), ("ec3", 64, 256, 1),
@@ -62,13 +90,22 @@ GATHERED = [("ec1", 64, 64, 1), ("ec2", 64, 128, 1), ("ec3", 64, 256, 1),
             ("dc42", 32, 256, 0)]
 PHASED = [("ec4", 32, 256, 2), ("dc3", 32, 512, 2), ("dc4", 32, 256, 2),
           ("dc5", 64, 256, 1), ("dc6", 64, 128, 1)]
-KERNELS = {
+# (tensor, s2d grid n, 8C) of the two pools that carry a gradient per
+# train batch of 128^3 crops
+POOLS = [("e1", 64, 256), ("e3s", 32, 512)]
+EPI_SRC = "se_unet_airseg_tpu_torch/csrc/epilogue.cu"
+KERNELS = {  # name: (the Pallas functions it replaces, source)
     "gathered_epilogue": ("se_unet_airseg_tpu/ops/pallas_s2d.py:1156; "
-                          "se_unet_airseg_tpu/ops/pallas_s2d.py:761", GATHERED),
+                          "se_unet_airseg_tpu/ops/pallas_s2d.py:761", EPI_SRC),
     "phased_epilogue": ("se_unet_airseg_tpu/ops/pallas_s2d.py:1854; "
-                        "se_unet_airseg_tpu/ops/pallas_s2d.py:518", PHASED),
+                        "se_unet_airseg_tpu/ops/pallas_s2d.py:518", EPI_SRC),
+    "phased_normalize": ("se_unet_airseg_tpu/ops/pallas_s2d.py:581", EPI_SRC),
+    "max_pool_s2d_bwd": ("se_unet_airseg_tpu/ops/pallas_s2d.py:671",
+                         "se_unet_airseg_tpu_torch/csrc/pool_s2d.cu"),
 }
-SOURCE = "se_unet_airseg_tpu_torch/csrc/epilogue.cu"
+EPILOGUE_TABLES = {"gathered_epilogue": GATHERED, "phased_epilogue": PHASED}
+STEP_LAUNCHES = {"gathered_epilogue": 10, "phased_epilogue": 5, "phased_normalize": 5,
+                 "max_pool_s2d_bwd": 2}
 
 
 def emit(obj) -> None:
@@ -100,6 +137,13 @@ def bf16_mismatch(got: torch.Tensor, ref: torch.Tensor):
     return float(d.max()), ok
 
 
+def bf16_ulp(ref: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of each element of ref (8 significant bits)."""
+    r = ref.float()
+    ulp = torch.ldexp(torch.ones_like(r), torch.frexp(r).exponent - 8)
+    return torch.where(r == 0, torch.full_like(r, 2.0 ** -133), ulp)
+
+
 def kernel_inputs(kind: str, n: int, c8: int, gates: int, gen: torch.Generator):
     dev = torch.device("cuda")
     m = n + 1 if kind == "phased_epilogue" else n
@@ -112,25 +156,48 @@ def kernel_inputs(kind: str, n: int, c8: int, gates: int, gen: torch.Generator):
     return y, scale8, shift8, wse
 
 
-def bound(y, out_numel: int, c8: int, gates: int):
-    """Least time for one call: each input read once, the output written
-    once (bytes), against about (4 + 4G) f32 operations per output
-    element (affine, LeakyReLU, per gate a multiply-add and a multiply,
-    the sigmoid once per C lanes)."""
-    nbytes = (y.numel() + out_numel) * y.element_size() + 2 * BATCH * c8 * 4
-    ops = out_numel * (4 + 4 * gates)
+def least_ms(nbytes: float, ops: float):
+    """(least ms, what binds it): bytes at the memory rate against f32
+    operations at the f32 peak."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound(elt: int, out_numel: int, c8: int, gates: int):
+    """Least time for one epilogue call: the elements the output needs
+    read once (one per output element: the phased form reads only its 8
+    shifted n^3 windows of the (n+1)^3 conv output), scale8/shift8 and
+    the gate vectors read once, the output written once (bytes), against
+    about (4 + 4G) f32 operations per output element (affine, LeakyReLU,
+    per gate a multiply-add and a multiply, the sigmoid once per C
+    lanes)."""
+    nbytes = (2 * out_numel + gates * c8 // 8) * elt + 2 * BATCH * c8 * 4
+    return least_ms(nbytes, out_numel * (4 + 4 * gates))
+
+
+def new_summary():
+    return {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
+            "bound_by": "bytes", "library_ms": None}
+
+
+def add_call(agg: dict, line: dict) -> None:
+    """Sum one call's line into its kernel's per-step summary."""
+    for k in ("ms", "plain_ms", "bound_ms"):
+        agg[k] += line[k]
+    if line.get("library_ms") is not None:
+        agg["library_ms"] = (agg["library_ms"] or 0.0) + line["library_ms"]
+    agg["max_abs_err"] = max(agg["max_abs_err"], line["max_abs_diff"])
+    if line["bound_by"] != "bytes":
+        agg["bound_by"] = line["bound_by"]
 
 
 def kernel_phase():
     gen = torch.Generator(device="cuda").manual_seed(0)
     summary = {}
-    for kind, (_, table) in KERNELS.items():
+    for kind, table in EPILOGUE_TABLES.items():
         kernel = getattr(eps, kind)
         plain = getattr(eps, kind + "_plain")
-        agg = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
-               "bound_by": "bytes"}
+        agg = new_summary()
         for block, n, c8, gates in table:
             y, scale8, shift8, wse = kernel_inputs(kind, n, c8, gates, gen)
             got = kernel(y, scale8, shift8, wse)
@@ -143,18 +210,87 @@ def kernel_phase():
             frac = float((got != ref).float().mean())
             ms = cuda_ms(lambda: kernel(y, scale8, shift8, wse))
             plain_ms = cuda_ms(lambda: plain(y, scale8, shift8, wse))
-            b_ms, b_by = bound(y, got.numel(), c8, gates)
-            emit({"kernel": kind, "block": block, "shape": list(y.shape), "gates": gates,
-                  "ms": ms, "bound_ms": b_ms, "bound_by": b_by, "plain_ms": plain_ms,
-                  "max_abs_diff": err, "frac_elements_differing": frac})
-            agg["ms"] += ms
-            agg["plain_ms"] += plain_ms
-            agg["bound_ms"] += b_ms
-            agg["max_abs_err"] = max(agg["max_abs_err"], err)
-            if b_by != "bytes":
-                agg["bound_by"] = b_by
+            b_ms, b_by = bound(y.element_size(), got.numel(), c8, gates)
+            line = {"kernel": kind, "block": block, "shape": list(y.shape), "gates": gates,
+                    "ms": ms, "bound_ms": b_ms, "bound_by": b_by, "plain_ms": plain_ms,
+                    "max_abs_diff": err, "frac_elements_differing": frac}
+            emit(line)
+            add_call(agg, line)
             del y, got, ref
         summary[kind] = agg
+    torch.cuda.empty_cache()
+    return summary
+
+
+def pool_input(n: int, c8: int, gen: torch.Generator) -> torch.Tensor:
+    """bf16 (B, n, n, n, 8C) pool input with ties among the 8
+    sub-positions: on every third channel sub-positions 3 and 6 copy 1,
+    on every seventh all 8 are equal."""
+    x8 = torch.randn((BATCH, n, n, n, 8, c8 // 8), generator=gen, device="cuda")
+    x8[..., 3, ::3] = x8[..., 1, ::3]
+    x8[..., 6, ::3] = x8[..., 1, ::3]
+    x8[..., :, ::7] = x8[..., :1, ::7]
+    return x8.flatten(-2).to(torch.bfloat16)
+
+
+def train_kernel_phase():
+    """phased_normalize at the 5 phased shapes and the fused pool
+    backward at the 2 pool shapes of one train step, each against its
+    plain version (normalize within one bf16 ulp; pool exact, one ulp
+    where a tie divides); the pool also against autograd of amax."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    summary = {"phased_normalize": new_summary(), "max_pool_s2d_bwd": new_summary()}
+    for block, n, c8, _ in PHASED:
+        y, scale8, shift8, _ = kernel_inputs("phased_epilogue", n, c8, 0, gen)
+        got = eps.phased_normalize(y, scale8, shift8)
+        ref = eps.phased_normalize_plain(y, scale8, shift8)
+        d = (got.float() - ref.float()).abs()
+        if not bool((d <= bf16_ulp(ref)).all()) or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"phased_normalize {block}: kernel disagrees with its "
+                                 f"plain version (max |d| {float(d.max())})")
+        b_ms, b_by = bound(y.element_size(), got.numel(), c8, 0)
+        line = {"kernel": "phased_normalize", "block": block, "shape": list(y.shape),
+                "ms": cuda_ms(lambda: eps.phased_normalize(y, scale8, shift8)),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "plain_ms": cuda_ms(lambda: eps.phased_normalize_plain(y, scale8, shift8)),
+                "max_abs_diff": float(d.max()),
+                "frac_elements_differing": float((d > 0).float().mean())}
+        emit(line)
+        add_call(summary["phased_normalize"], line)
+        del y, got, ref, d
+    for block, n, c8 in POOLS:
+        x = pool_input(n, c8, gen)
+        g = torch.randn((BATCH, n, n, n, c8 // 8), generator=gen, device="cuda")
+        g = g.to(torch.bfloat16)
+        x8 = x.unflatten(-1, (8, c8 // 8))
+        tie = ((x8 == x8.amax(-2, keepdim=True)).sum(-2, keepdim=True) > 1)
+        tie = tie.expand_as(x8).flatten(-2)
+        err = 0.0
+        for gg in (None, g):  # the mask form, then the fused form the path runs
+            got = ps2d.max_pool_s2d_bwd(x, gg)
+            ref = ps2d.max_pool_s2d_bwd_plain(x, gg)
+            d = (got.float() - ref.float()).abs()
+            if bool((d[~tie] > 0).any()) or not bool((d <= bf16_ulp(ref)).all()):
+                raise AssertionError(f"max_pool_s2d_bwd {block} (g={gg is not None}): "
+                                     f"kernel disagrees with its plain version")
+            err = max(err, float(d.max()))
+        xr = x.detach().requires_grad_(True)
+        amax = xr.unflatten(-1, (8, c8 // 8)).amax(-2)
+
+        def library():
+            return torch.autograd.grad(amax, xr, g, retain_graph=True)[0]
+
+        lib_d = float((library().float() - got.float()).abs().max())
+        b_ms, b_by = least_ms((x.numel() + g.numel() + got.numel()) * 2, 4 * got.numel())
+        line = {"kernel": "max_pool_s2d_bwd", "block": block, "shape": list(x.shape),
+                "ms": cuda_ms(lambda: ps2d.max_pool_s2d_bwd(x, g)),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "plain_ms": cuda_ms(lambda: ps2d.max_pool_s2d_bwd_plain(x, g)),
+                "library_ms": cuda_ms(library), "library_max_abs_diff": lib_d,
+                "max_abs_diff": err, "tie_share": float(tie.float().mean())}
+        emit(line)
+        add_call(summary["max_pool_s2d_bwd"], line)
+        del x, g, x8, tie, got, ref, d, xr, amax
     torch.cuda.empty_cache()
     return summary
 
@@ -167,16 +303,17 @@ def model_parity_phase():
     tree_cpu = model.params_tree()
     tree_gpu = model.cuda().params_tree()
     x = torch.randn((2, 64, 64, 64, 2), generator=torch.Generator().manual_seed(2))
-    eps.reset_launch_counts()
+    reset_launch_counts()
     with torch.inference_mode():
         fast_gpu = se_unet_apply_fast(tree_gpu, x.cuda(), cfg=cfg)
         torch.cuda.synchronize()
-        launched = dict(eps.launch_counts)
+        launched = dict(launch_counts)
         ref_gpu = se_unet_apply(tree_gpu, x.cuda(), cfg=cfg)
         fast_cpu = se_unet_apply_fast(tree_cpu, x, cfg=cfg)
         bf16_cfg = SEUNetConfig(compute_dtype=torch.bfloat16)
         fast_bf16 = se_unet_apply_fast(tree_gpu, x.cuda(), cfg=bf16_cfg)
-    if launched != {"gathered_epilogue": 10, "phased_epilogue": 5}:
+    if launched != {"gathered_epilogue": 10, "phased_epilogue": 5, "phased_normalize": 0,
+                    "max_pool_s2d_bwd": 0}:
         raise AssertionError(f"f32 apply_fast launched {launched}")
     res = {"launches_f32": launched}
     for name, a, b in (("gpu_vs_cpu", fast_gpu, fast_cpu), ("fast_vs_apply", fast_gpu, ref_gpu)):
@@ -189,15 +326,17 @@ def model_parity_phase():
     emit({"model_parity": res})
 
 
-def phantom(seed: int) -> np.ndarray:
+def phantom(seed: int):
     """Synthetic chest CT, int16 HU+1024: body of soft tissue, two lungs,
-    a tubular airway tree (lumen -1000 HU, wall +50 HU), noise."""
+    a tubular airway tree (lumen -1000 HU, wall +50 HU), noise. Returns
+    (volume as numpy, airway lumen mask as a bool tensor on the card)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, h, w = SHAPE
     z, y, x = torch.meshgrid(*(torch.arange(s, device=dev, dtype=torch.float32)
                                for s in SHAPE), indexing="ij")
     hu = torch.full(SHAPE, -1000.0, device=dev)
+    lumen = torch.zeros(SHAPE, dtype=torch.bool, device=dev)
     body = ((y - h / 2) / (0.45 * h)) ** 2 + ((x - w / 2) / (0.47 * w)) ** 2 < 1
     hu[body] = 40.0
     for cx in (0.3 * w, 0.7 * w):
@@ -219,20 +358,20 @@ def phantom(seed: int) -> np.ndarray:
                           + (x - p0[2] - t * v[2]) ** 2)
         hu[(dist >= r) & (dist < r + 2)] = 50.0
         hu[dist < r] = -1000.0
+        lumen |= dist < r
     hu = hu + 30.0 * torch.randn(SHAPE, generator=gen, device=dev)
-    return (hu + 1024.0).clamp(0, 4000).to(torch.int16).cpu().numpy()
+    return (hu + 1024.0).clamp(0, 4000).to(torch.int16).cpu().numpy(), lumen
 
 
-def main_path_phase():
+def main_path_phase(vol: np.ndarray):
     cfg, model = get_model(seed=0, compute_dtype=torch.bfloat16)
     runner = SlidingWindowRunner(model, cfg, cube=128, step=64, batch=BATCH)
-    vol = phantom(0)
     kw = dict(h_thresh=0.5, l_thresh=0.35, hu_shift=-1024.0)
 
     # warm-up volume; record the epilogue calls of one volume to hold the
     # kernel phase's shape table against what the main path really runs
     seen = []
-    originals = {k: getattr(eps, k) for k in KERNELS}
+    originals = {k: getattr(eps, k) for k in EPILOGUE_TABLES}
 
     def recorder(kind):
         def call(y, scale8, shift8, wse=None):
@@ -242,7 +381,7 @@ def main_path_phase():
             return originals[kind](y, scale8, shift8, wse)
         return call
 
-    for k in KERNELS:
+    for k in EPILOGUE_TABLES:
         setattr(eps, k, recorder(k))
     try:
         t0 = time.perf_counter()
@@ -253,7 +392,7 @@ def main_path_phase():
             setattr(eps, k, fn)
     n_tiles = 48
     n_batches = n_tiles // BATCH
-    want = sorted((k, n, c8, g, BATCH) for k, (_, t) in KERNELS.items()
+    want = sorted((k, n, c8, g, BATCH) for k, t in EPILOGUE_TABLES.items()
                   for _, n, c8, g in t) * n_batches
     if sorted(seen) != sorted(want):
         raise AssertionError("the main path's epilogue calls differ from the kernel "
@@ -261,16 +400,17 @@ def main_path_phase():
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    eps.reset_launch_counts()
+    reset_launch_counts()
     vol_s = []
     for _ in range(TIMED_VOLUMES):
         t0 = time.perf_counter()
         trits = runner.predict_trits(vol, **kw)
         torch.cuda.synchronize()
         vol_s.append(time.perf_counter() - t0)
-    launches = dict(eps.launch_counts)
+    launches = dict(launch_counts)
     n_batches *= TIMED_VOLUMES
-    if launches != {"gathered_epilogue": 10 * n_batches, "phased_epilogue": 5 * n_batches}:
+    if launches != {"gathered_epilogue": 10 * n_batches, "phased_epilogue": 5 * n_batches,
+                    "phased_normalize": 0, "max_pool_s2d_bwd": 0}:
         raise AssertionError(f"main path launches {launches}, want 10 and 5 per batch")
     if trits.shape != SHAPE or trits.dtype != np.uint8 or trits.max() > 2:
         raise AssertionError(f"bad trit field {trits.shape} {trits.dtype}")
@@ -288,6 +428,143 @@ def main_path_phase():
     return launches
 
 
+def train_parity_phase():
+    """One float32 stage-1 train step on the card (kernels) against the
+    same step on the CPU (plain versions): same weights, batch and
+    DropLayer draws."""
+    cfg = SEUNetConfig()
+    tree = SEUNet(cfg, generator=torch.Generator().manual_seed(3)).params_tree()
+    gen = torch.Generator().manual_seed(4)
+    b, s = 2, 64
+    batch = {"image": torch.rand((b, s, s, s, 2), generator=gen),
+             "label": (torch.rand((b, s, s, s), generator=gen) > 0.7).float()}
+    draws = [torch.rand((b, 24), generator=gen), torch.rand((b, 12), generator=gen)]
+    opt, _ = make_optimizer()
+    step = make_train_step(cfg, stage=1)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state = create_train_state(_tree_map(lambda t: t.to(dev), tree), opt)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state, aux = step(state, {k: v.to(dev) for k, v in batch.items()}, drop_draws=draws)
+        loss = float(aux["loss"])
+        secs = time.perf_counter() - t0
+        grads = [torch.zeros(t.shape) if t.grad is None else t.grad.cpu()
+                 for t in _leaves(state.params)]
+        params = [t.detach().cpu() for t in _leaves(state.params)]
+        out[dev] = (loss, grads, params, dict(launch_counts), secs)
+    (l_gpu, g_gpu, p_gpu, n_gpu, s_gpu), (l_cpu, g_cpu, p_cpu, n_cpu, s_cpu) = \
+        out["cuda"], out["cpu"]
+    if n_gpu != STEP_LAUNCHES or any(n_cpu.values()):
+        raise AssertionError(f"f32 train step launched {n_gpu} on the card, {n_cpu} on the CPU")
+    # the dice loss averages over every voxel, so a gradient element is
+    # far below the atol: each leaf is also held against its own norm,
+    # |d|_2 <= 2e-2 |g_cpu|_2 + floor, the floor for the conv biases in
+    # front of an InstanceNorm, whose gradient is zero up to rounding
+    floor = 1e-6 * max(float(r.norm()) for r in g_cpu)
+    ratios = [float((a - r).norm() / r.norm()) for a, r in zip(g_gpu, g_cpu)
+              if float(r.norm()) > floor]
+    emit({"train_parity": {
+        "crop": s, "batch": b, "dtype": "float32", "stage": 1, "launches_gpu": n_gpu,
+        "loss_gpu": l_gpu, "loss_cpu": l_cpu,
+        "grad_max_abs_diff": max(float((a - r).abs().max()) for a, r in zip(g_gpu, g_cpu)),
+        "grad_leaf_norm_ratio_max": max(ratios),
+        "grad_leaf_max_abs_min": min(float(r.abs().max()) for r in g_cpu
+                                     if float(r.norm()) > floor),
+        "grad_leaves": len(g_cpu), "grad_leaves_zero_up_to_rounding": len(g_cpu) - len(ratios),
+        "param_max_abs_diff": max(float((a - r).abs().max()) for a, r in zip(p_gpu, p_cpu)),
+        "step_s_gpu_first": s_gpu, "step_s_cpu": s_cpu}})
+    torch.testing.assert_close(torch.tensor(l_gpu), torch.tensor(l_cpu), rtol=5e-3, atol=5e-4)
+    for a, r in zip(g_gpu, g_cpu):
+        torch.testing.assert_close(a, r, rtol=5e-3, atol=5e-4)
+        if not float((a - r).norm()) <= 2e-2 * float(r.norm()) + floor:
+            raise AssertionError(f"a gradient leaf {tuple(r.shape)} differs by "
+                                 f"{float((a - r).norm())} against its norm {float(r.norm())}")
+
+
+def train_path_phase(vol: np.ndarray, lumen: torch.Tensor):
+    """make_train_step(stage=1) at full width, bf16, AdamW, on 8 crops of
+    128^3 of the phantom: one warm-up step, TRAIN_STEPS timed steps."""
+    cfg = SEUNetConfig(compute_dtype=torch.bfloat16)
+    tree = SEUNet(cfg, generator=torch.Generator().manual_seed(0)).cuda().params_tree()
+    opt, _ = make_optimizer()
+    state = create_train_state(tree, opt)
+    del tree
+    # 8 crops along the trachea and the two main bronchi
+    origins = [(z, 64, x) for z in (0, 64, 128, 192) for x in (48, 144)]
+    hu = torch.from_numpy(vol).cuda()
+    crop = [(slice(z, z + 128), slice(y, y + 128), slice(x, x + 128)) for z, y, x in origins]
+    batch = {"image": hu_dual_window(torch.stack([hu[c] for c in crop]).float() - 1024.0),
+             "label": torch.stack([lumen[c] for c in crop]).float()}
+    del hu
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    fixed = [torch.rand((BATCH, 24), generator=gen, device="cuda"),
+             torch.rand((BATCH, 12), generator=gen, device="cuda")]
+    loss_fn = make_loss_fn(cfg, stage=1)
+
+    def fixed_loss() -> float:
+        with torch.no_grad():
+            return float(loss_fn(state.params, batch, drop_draws=fixed)[0])
+
+    step = make_train_step(cfg, stage=1)
+    loss_before = fixed_loss()
+
+    # warm-up step; record the train kernels' calls to hold the train
+    # kernel phase's shape table against what the step really runs
+    seen = []
+    orig_norm, orig_pool = eps.phased_normalize, ps2d.max_pool_s2d_bwd
+
+    def norm_rec(y_ext, scale8, shift8):
+        seen.append(("phased_normalize", y_ext.shape[1] - 1, y_ext.shape[-1]))
+        return orig_norm(y_ext, scale8, shift8)
+
+    def pool_rec(x, g=None):
+        seen.append(("max_pool_s2d_bwd", x.shape[1], x.shape[-1]))
+        return orig_pool(x, g)
+
+    eps.phased_normalize, ps2d.max_pool_s2d_bwd = norm_rec, pool_rec
+    try:
+        t0 = time.perf_counter()
+        state, aux = step(state, batch, gen)
+        losses = [float(aux["loss"])]
+        warm_s = time.perf_counter() - t0
+    finally:
+        eps.phased_normalize, ps2d.max_pool_s2d_bwd = orig_norm, orig_pool
+    want = [("phased_normalize", n, c8) for _, n, c8, _ in PHASED] + \
+        [("max_pool_s2d_bwd", n, c8) for _, n, c8 in POOLS]
+    if sorted(seen) != sorted(want):
+        raise AssertionError(f"the train step's kernel calls {sorted(seen)} differ from the "
+                             f"train kernel phase's shape table")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    step_s = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, aux = step(state, batch, gen)
+        losses.append(float(aux["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    launches = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    loss_after = fixed_loss()
+    if launches != {k: v * TRAIN_STEPS for k, v in STEP_LAUNCHES.items()}:
+        raise AssertionError(f"train path launches {launches}, want {STEP_LAUNCHES} per step")
+    if not all(np.isfinite(losses)) or not np.isfinite(loss_after):
+        raise AssertionError(f"non-finite train loss: {losses}, {loss_after}")
+    if not loss_after < loss_before:
+        raise AssertionError(f"the batch's loss did not fall: {loss_before} -> {loss_after}")
+    med = statistics.median(step_s[-5:])
+    emit({"train_path": {
+        "crop": 128, "batch": BATCH, "dtype": "bfloat16", "stage": 1, "remat": cfg.remat,
+        "optimizer": "AdamW", "steps": TRAIN_STEPS, "warmup_s": warm_s, "step_s_runs": step_s,
+        "step_s": med, "patches_per_s": BATCH / med, "peak_mem_gb": peak,
+        "losses": losses, "fixed_draw_loss_before": loss_before,
+        "fixed_draw_loss_after": loss_after, "launches": launches,
+        "label_share": float(batch["label"].mean())}})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -302,20 +579,28 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    lib = eps.build_kernels()
-    ptxas = [ln for ln in lib.build_log.splitlines() if "registers" in ln or "spill" in ln]
-    emit({"build": {"seconds": lib.build_seconds, "library": lib.path.name,
-                    "ptxas": ptxas}})
+    t0 = time.perf_counter()
+    lib = build_kernels()
+    emit({"build": {"seconds": time.perf_counter() - t0, "library": lib.path.name,
+                    "nvcc_seconds": lib.build_seconds,
+                    "ptxas": [ln for ln in lib.build_log.splitlines()
+                              if "registers" in ln or "spill" in ln]}})
 
     summary = kernel_phase()
+    summary.update(train_kernel_phase())
     model_parity_phase()
-    launches = main_path_phase()
+    vol, lumen = phantom(0)
+    launches = main_path_phase(vol)
+    train_parity_phase()
+    launches.update({k: v for k, v in train_path_phase(vol, lumen).items()
+                     if k not in EPILOGUE_TABLES})
 
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": KERNELS[name][0],
-         "launches": launches[name], "max_abs_err": agg["max_abs_err"], "ms": agg["ms"],
-         "plain_ms": agg["plain_ms"], "bound_ms": agg["bound_ms"],
-         "bound_by": agg["bound_by"], "library_ms": None}
+        {"name": name, "route": "cuda", "source": KERNELS[name][1],
+         "replaces": KERNELS[name][0], "launches": launches[name],
+         "max_abs_err": agg["max_abs_err"], "ms": agg["ms"], "plain_ms": agg["plain_ms"],
+         "bound_ms": agg["bound_ms"], "bound_by": agg["bound_by"],
+         "library_ms": agg["library_ms"]}
         for name, agg in summary.items()]})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,12 @@
 //   gathered epilogue: gated_norm_finalize_bm (_gathered_kernel_bm) and
 //                      gated_norm_finalize (_gathered_kernel);
 //   phased epilogue:   phased_finalize_bm (_pfin_kernel_bm) and
-//                      phased_finalize (_epilogue_kernel).
+//                      phased_finalize (_epilogue_kernel);
+//   phased normalize:  phased_normalize (_epilogue_kernel with relu=False and
+//                      no gates): the phase gather and the InstanceNorm affine
+//                      alone, a = dtype(f32(y) * scale8 - shift8), the
+//                      normalized pre-activation that the phased block's
+//                      backward reads. Same body, activation compiled out.
 // The TPU's batch-minor / batch-major split was a tiling artifact; one
 // kernel per computation serves both here.
 //
@@ -23,13 +28,16 @@
 // q = (a, b, c) of output voxel (z, y, x) comes from y_ext[z+a, y+b, x+c]
 // in lane block q. The gathered tensor never reaches device memory.
 //
-// Bound: device memory. Each kernel reads y (or y_ext) once and writes
-// the output once; the arithmetic is a few flops per byte, far below the
-// H100's ~295 bf16 flops/byte ridge. Design: a group of C8/V threads per
-// voxel row (V = 16 bytes of elements), each thread one 16-byte vector
-// load and store; the C/V threads of one sub-position reduce the gate
-// logit with warp shuffles. Offsets are 64-bit (dc5's y_ext at batch 8
-// holds 5.6e8 elements). The kernels allocate nothing, launch on the
+// Bound: device memory. Each kernel reads one input element per output
+// element (the phased forms only their 8 shifted n^3 windows of y_ext's
+// (n+1)^3 voxels) and writes the output once; the arithmetic is a few
+// flops per byte, far below the H100's ~295 bf16 flops/byte ridge. Design:
+// a group of C8/V threads per voxel row (V = 16 bytes of elements), each
+// thread one 16-byte vector load and store; the C/V threads of one
+// sub-position reduce the gate logit with warp shuffles. The normalize
+// form moves the same bytes minus the gate vectors, so its bound is the
+// phased form's. Offsets are 64-bit (dc5's y_ext at batch 8 holds 5.6e8
+// elements). The kernels allocate nothing, launch on the
 // caller's stream and report launch errors through cudaGetLastError().
 
 #include <cuda_bf16.h>
@@ -58,7 +66,7 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
 }
 
-template <typename T, bool kPhased>
+template <typename T, bool kPhased, bool kActivate>
 __global__ void __launch_bounds__(kThreads) epilogue_kernel(
     const T* __restrict__ y, int64_t sb, int64_t sz, int64_t sy, int64_t sx,
     T* __restrict__ out, const float* __restrict__ scale8,
@@ -100,7 +108,7 @@ __global__ void __launch_bounds__(kThreads) epilogue_kernel(
 #pragma unroll
   for (int v = 0; v < V; ++v) {
     float u = __fsub_rn(__fmul_rn(to_f32(rv[v]), sc[v]), sh[v]);
-    u = u >= 0.f ? u : __fmul_rn(0.01f, u);
+    if (kActivate) u = u >= 0.f ? u : __fmul_rn(0.01f, u);
     e[v] = round_to<T>(u);
   }
 
@@ -133,7 +141,7 @@ int ilog2_exact(int64_t v) {
   return l;
 }
 
-template <typename T, bool kPhased>
+template <typename T, bool kPhased, bool kActivate = true>
 int launch(const void* y, int64_t sb, int64_t sz, int64_t sy, int64_t sx,
            void* out, const float* scale8, const float* shift8, const void* wse,
            int n_gates, int64_t batch, int n, int c8, cudaStream_t stream) {
@@ -147,7 +155,7 @@ int launch(const void* y, int64_t sb, int64_t sz, int64_t sy, int64_t sx,
   const int64_t threads = n_rows << log2_row;
   const int64_t blocks = (threads + kThreads - 1) / kThreads;
   if (blocks == 0) return 0;
-  epilogue_kernel<T, kPhased><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+  epilogue_kernel<T, kPhased, kActivate><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       static_cast<const T*>(y), sb, sz, sy, sx, static_cast<T*>(out), scale8, shift8,
       static_cast<const T*>(wse), n_gates, n_rows, n, c8, log2_row, log2_tpp);
   return static_cast<int>(cudaGetLastError());
@@ -182,5 +190,21 @@ extern "C" int airseg_phased_epilogue(int dtype, const void* y_ext, long long sb
   if (dtype == 1)
     return launch<__nv_bfloat16, true>(y_ext, sb, sz, sy, sx, out, scale8, shift8, wse,
                                        n_gates, batch, n, c8, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Phase gather + InstanceNorm affine only (no LeakyReLU, no gates); the
+// same y_ext layout and strides as airseg_phased_epilogue.
+extern "C" int airseg_phased_normalize(int dtype, const void* y_ext, long long sb,
+                                       long long sz, long long sy, long long sx, void* out,
+                                       const float* scale8, const float* shift8,
+                                       long long batch, int n, int c8, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float, true, false>(y_ext, sb, sz, sy, sx, out, scale8, shift8, nullptr, 0,
+                                      batch, n, c8, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, true, false>(y_ext, sb, sz, sy, sx, out, scale8, shift8,
+                                              nullptr, 0, batch, n, c8, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,6 +7,7 @@ from .se_unet import (
     prepare_fast_params,
 )
 from .torch_import import (
+    jax_params_from_torch,
     load_torch_checkpoint,
     params_from_state_dict,
     state_dict_from_jax_params,
@@ -16,6 +17,7 @@ __all__ = [
     "SEUNet",
     "SEUNetConfig",
     "get_model",
+    "jax_params_from_torch",
     "load_torch_checkpoint",
     "params_from_state_dict",
     "prepare_fast_params",

@@ -27,8 +27,19 @@ Two forwards over one parameter tree (DHWIO weights, NDHWC tensors):
     reassociation.
 
 `SEUNet` is the `nn.Module` holding the parameters under the reference
-state_dict names. Train mode (DropLayer, gradients) is not ported yet:
-`train=True` raises.
+state_dict names.
+
+Train mode (`train=True`) applies DropLayer, the reference's channel
+dropout, to the concatenated side outputs in front of each head. Its
+uniform draws, (B, 12*side) for the encoder head and (B, 6*side) for the
+decoder head, come from an explicit `torch.Generator`, or are passed in
+as `drop_draws` (the JAX package's keyed draws cannot be reproduced, so
+tests hand both packages the same numbers). Gradients flow through
+everything, `prepare_fast_params` included: the fast path's fused
+blocks, and the s2d max pool, are `torch.autograd.Function`s with the
+JAX package's hand-written backwards. `cfg.remat` checkpoints each block
+(`torch.utils.checkpoint`, non-reentrant), except the phased blocks,
+whose Function saves only the block inputs anyway.
 """
 
 from __future__ import annotations
@@ -39,6 +50,7 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import (
     conv3d,
@@ -68,10 +80,6 @@ from .torch_import import params_from_state_dict
 
 Params = dict[str, Any]
 
-_TRAIN_MSG = ("train mode (DropLayer and the epilogue backwards) is not "
-              "ported yet; it comes with the train slice")
-
-
 @dataclasses.dataclass(frozen=True)
 class SEUNetConfig:
     in_channels: int = 2
@@ -79,6 +87,9 @@ class SEUNetConfig:
     side_channels: int = 2  # out_channel2 in the reference
     drop_threshold: float = 0.3
     compute_dtype: torch.dtype = torch.float32  # bfloat16 for inference
+    # checkpoint each block in training: its activations are recomputed in
+    # backward instead of kept
+    remat: bool = False
 
 
 # (name, kind, (cin, cout)); kind: sse1/sse2 = SSEConv with 1/2 gates
@@ -215,14 +226,54 @@ def _cat_block(p: Params, x):
     return leaky_relu(instance_norm(conv3d(x, p["conv"]["w"])))
 
 
+def _remat(f, cfg: SEUNetConfig):
+    """`f` checkpointed (recomputed in backward) under cfg.remat while
+    gradients are taken; `f` itself otherwise."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return f
+
+    def wrapped(*args, **kw):
+        return checkpoint(f, *args, use_reentrant=False, **kw)
+    return wrapped
+
+
+def _drop_draws(x, cfg: SEUNetConfig, generator, drop_draws):
+    """The two DropLayer uniform draws (B, 12*side), (B, 6*side) as
+    float32 on x's device: `drop_draws` when given, else from
+    `generator`."""
+    if drop_draws is None:
+        if generator is None:
+            raise ValueError("train=True needs a generator or drop_draws for DropLayer")
+        b, s = x.shape[0], cfg.side_channels
+        drop_draws = [torch.rand((b, k * s), generator=generator, device=generator.device)
+                      for k in (12, 6)]
+    return [r.to(device=x.device, dtype=torch.float32) for r in drop_draws]
+
+
+def _drop_scale(r, threshold: float):
+    """DropLayer's per-(batch, channel) factor from its uniform draws r
+    (B, C): mask (r >= threshold) times C / (mask.sum() + 0.01), the sum
+    over the whole mask (reference SE_UNet.py:84-97)."""
+    mask = (r >= threshold).to(torch.float32)
+    return mask * (r.shape[-1] / (mask.sum() + 0.01))
+
+
+def _drop_layer(x, r, threshold: float):
+    """DropLayer (channel dropout) of NDHWC x with the draws r (B, C)."""
+    m = _drop_scale(r, threshold).reshape(x.shape[0], 1, 1, 1, x.shape[-1])
+    return x * m.to(x.dtype)
+
+
 def apply(params: Params, x: torch.Tensor, *, cfg: SEUNetConfig = SEUNetConfig(),
-          train: bool = False):
+          train: bool = False, generator: torch.Generator | None = None,
+          drop_draws=None):
     """Forward on NDHWC input (B, D, H, W, in_channels) in the reference
-    layout. Returns the raw-logit heads (pred_en, pred_de)."""
-    if train:
-        raise NotImplementedError(_TRAIN_MSG)
+    layout. Returns the raw-logit heads (pred_en, pred_de). `train`
+    applies DropLayer with draws from `generator` or `drop_draws`."""
     p = cast_params(params, cfg.compute_dtype)
     x = x.to(cfg.compute_dtype)
+    _sse_block = _remat(globals()["_sse_block"], cfg)
+    _cat_block = _remat(globals()["_cat_block"], cfg)
 
     def cat(*ts):
         return torch.cat(ts, dim=-1)
@@ -269,6 +320,10 @@ def apply(params: Params, x: torch.Tensor, *, cfg: SEUNetConfig = SEUNetConfig()
 
     sides_en = cat(s0, s1, s2, s3, s4, s5, s6, s7, s8, s9, s10, s11)
     sides_de = cat(s12, s13, s14, s15, s16, s17)
+    if train:
+        r_en, r_de = _drop_draws(x, cfg, generator, drop_draws)
+        sides_en = _drop_layer(sides_en, r_en, cfg.drop_threshold)
+        sides_de = _drop_layer(sides_de, r_de, cfg.drop_threshold)
     pred_en = conv3d(sides_en, p["head_en"]["w"], p["head_en"]["b"])
     pred_de = conv3d(sides_de, p["head_de"]["w"], p["head_de"]["b"])
     return pred_en, pred_de
@@ -363,11 +418,15 @@ def _cat_block_s2d(pre: Params, x):
     return gated_norm_block(grouped_pointwise_multi_pre(xs, pre["wd"]), None)
 
 
-def _composed_head(metas, head_p: Params, interp=None, s2d_out: bool = False):
-    """Eval-mode deep-supervision head without materializing the side
-    outputs: conv1x1(cat(upsample(side_i))) is linear, and align_corners
-    interpolation rows sum to 1, so it folds into
-        sum_i upsample(feat_i @ (w_side_i @ W_head_i)) + bias.
+def _composed_head(metas, head_p: Params, interp=None, s2d_out: bool = False,
+                   drop=None):
+    """Deep-supervision head without materializing the side outputs:
+    conv1x1(DropLayer(cat(upsample(side_i)))) is linear, and
+    align_corners interpolation rows sum to 1, so it folds into
+        sum_i upsample(feat_i @ (w_side_i @ (m_i * W_head_i))) + bias,
+    with the DropLayer factors m (B, C) of `drop` (train mode) entering
+    as a per-batch reweighting of the head; without `drop` (eval) the
+    weights are batch-independent.
 
     `metas`: ordered (feat, block_params, kind, scale); kind 's2d' is an
     s2d feature at the output grid, 's2d_up' an s2d feature at a coarser
@@ -383,8 +442,27 @@ def _composed_head(metas, head_p: Params, interp=None, s2d_out: bool = False):
     per_scale: dict = {}
     bias = torch.zeros(batch, dtype=f32, device=dev) + head_p["b"].to(f32)[0]
     ch = 0
+    hw_eff = None if drop is None else drop * hw[None, :]  # (B, C)
     for feat, bp, kind, sc in metas:
         w_side = bp["side"]["w"][0, 0, 0].to(f32)  # (Ci, 2)
+        if hw_eff is not None:
+            whe = hw_eff[:, ch : ch + 2]  # (B, 2)
+            ch += 2
+            bias = bias + whe @ bp["side"]["b"].to(f32)
+            w_eff = (whe @ w_side.T).to(feat.dtype)  # (B, Ci)
+            lead = feat.shape[:-1]
+            flat = feat.reshape(batch, -1, feat.shape[-1])
+            if kind in ("s2d", "s2d_up"):
+                wk = torch.einsum("pq,bc->bpcq", eye8.to(feat.dtype), w_eff)
+                contrib = (flat @ wk.reshape(batch, -1, 8)).reshape(*lead, 8).to(f32)
+                if kind == "s2d":
+                    total = contrib if total is None else total + contrib
+                    continue
+                contrib = depth_to_space(contrib)
+            else:
+                contrib = (flat @ w_eff.unsqueeze(-1)).reshape(*lead, 1).to(f32)
+            per_scale[sc] = contrib if sc not in per_scale else per_scale[sc] + contrib
+            continue
         whe = hw[ch : ch + 2]
         ch += 2
         bias = bias + (bp["side"]["b"].to(f32) * whe).sum()
@@ -412,6 +490,7 @@ def _composed_head(metas, head_p: Params, interp=None, s2d_out: bool = False):
 
 def apply_fast(params: Params, x: torch.Tensor, *,
                cfg: SEUNetConfig = SEUNetConfig(), train: bool = False,
+               generator: torch.Generator | None = None, drop_draws=None,
                fast_params: Params | None = None, x_is_s2d: bool = False,
                heads_s2d: bool = False):
     """Fast forward; same contract as `apply` (D, H, W divisible by 8).
@@ -420,9 +499,13 @@ def apply_fast(params: Params, x: torch.Tensor, *,
     (B, D/2, H/2, W/2, 8*C) with phase-major lanes. `heads_s2d`: return
     both heads in s2d layout (B, D/2, H/2, W/2, 8*n_classes). Neither
     changes values. `fast_params`: `prepare_fast_params(params, cfg)`,
-    computed here when None."""
-    if train:
-        raise NotImplementedError(_TRAIN_MSG)
+    computed here when None (in the autograd graph, as training needs).
+    `train`: DropLayer with draws from `generator` or `drop_draws`."""
+    _sse_block_s2d = _remat(globals()["_sse_block_s2d"], cfg)
+    _sse_block_s2d_dil2 = _remat(globals()["_sse_block_s2d_dil2"], cfg)
+    _cat_block_s2d = _remat(globals()["_cat_block_s2d"], cfg)
+    _sse_block = _remat(globals()["_sse_block"], cfg)
+    _cat_block = _remat(globals()["_cat_block"], cfg)
     dt = cfg.compute_dtype
     p = cast_params(params, dt)
     x = x.to(dt)
@@ -504,6 +587,13 @@ def apply_fast(params: Params, x: torch.Tensor, *,
         (f14, p["dc3"], "s2d_up", 2), (f15, p["dc4"], "s2d_up", 2),
         (f16, p["dc5"], "s2d", 1), (f17, p["dc6"], "s2d", 1),
     ]
-    pred_en = _composed_head(metas_en, p["head_en"], interp=interp, s2d_out=heads_s2d)
-    pred_de = _composed_head(metas_de, p["head_de"], interp=interp, s2d_out=heads_s2d)
+    drop_en = drop_de = None
+    if train:
+        r_en, r_de = _drop_draws(x, cfg, generator, drop_draws)
+        drop_en = _drop_scale(r_en, cfg.drop_threshold)
+        drop_de = _drop_scale(r_de, cfg.drop_threshold)
+    pred_en = _composed_head(metas_en, p["head_en"], interp=interp, s2d_out=heads_s2d,
+                             drop=drop_en)
+    pred_de = _composed_head(metas_de, p["head_de"], interp=interp, s2d_out=heads_s2d,
+                             drop=drop_de)
     return pred_en.to(torch.float32), pred_de.to(torch.float32)

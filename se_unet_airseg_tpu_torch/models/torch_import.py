@@ -15,7 +15,8 @@ reads a parameter tree of DHWIO tensors, the JAX package's layout:
   dc0_1.{weight,bias}         <-> head_de.{w,b}
 
 Conv weights are (O, I, kD, kH, kW) in the state_dict, DHWIO in the
-tree.
+tree. `jax_params_from_torch` goes the other way, to the JAX package's
+layout as numpy, for parameters and gradients alike.
 """
 
 from __future__ import annotations
@@ -82,6 +83,21 @@ def state_dict_from_jax_params(params_np: Mapping[str, Any]) -> dict:
             for leaf, arr in leaves.items():
                 sd[f"{block}.{_LEAF_INV[(part, leaf)]}"] = oidhw(arr)
     return sd
+
+
+def jax_params_from_torch(tree: Mapping[str, Any]) -> dict:
+    """The port's parameter tree, or a gradient tree of the same layout,
+    -> the JAX package's parameter tree of float32 numpy arrays (DHWIO),
+    leaf by leaf. After `params_from_state_dict` it inverts
+    `state_dict_from_jax_params`."""
+
+    def leaf(t):
+        return np.array(torch.as_tensor(t).detach().to("cpu", torch.float32).numpy())
+
+    def walk(node):
+        return {k: walk(v) if isinstance(v, Mapping) else leaf(v) for k, v in node.items()}
+
+    return walk(tree)
 
 
 def load_torch_checkpoint(path: str) -> dict:

@@ -1,21 +1,23 @@
-"""Device ops of the port: plain PyTorch building blocks and the fused
-epilogue kernels' wrappers."""
+"""Device ops of the port: plain PyTorch building blocks and the CUDA
+kernels' wrappers (fused epilogue, phased normalize, pool backward)."""
 
 from .conv import conv3d
+from .cuda_lib import build_kernels, launch_counts, reset_launch_counts
 from .epilogue_s2d import (
     gated_norm_block,
     gathered_epilogue,
-    launch_counts,
     phased_epilogue,
     phased_gated_block,
-    reset_launch_counts,
+    phased_normalize,
 )
 from .norms import instance_norm, leaky_relu
 from .pool import max_pool3d
 from .resize import upsample_trilinear
+from .s2d import max_pool_s2d, max_pool_s2d_bwd
 from .windowing import hu_dual_window
 
 __all__ = [
+    "build_kernels",
     "conv3d",
     "gated_norm_block",
     "gathered_epilogue",
@@ -24,8 +26,11 @@ __all__ = [
     "launch_counts",
     "leaky_relu",
     "max_pool3d",
+    "max_pool_s2d",
+    "max_pool_s2d_bwd",
     "phased_epilogue",
     "phased_gated_block",
+    "phased_normalize",
     "reset_launch_counts",
     "upsample_trilinear",
 ]

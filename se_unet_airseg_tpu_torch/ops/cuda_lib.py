@@ -1,0 +1,123 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+The sources under `csrc/` are compiled for sm_90a, one nvcc per source,
+all started together, and linked into one shared library under the
+git-ignored `csrc/build/`, named by the sources' hash (an edited source
+builds anew), at first use, and loaded with ctypes.
+
+`launch_counts` holds one count per kernel; a wrapper adds one where it
+launches its kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_BUILD_DIR = _CSRC / "build"
+_SOURCES = ("epilogue.cu", "pool_s2d.cu")
+
+launch_counts = {"gathered_epilogue": 0, "phased_epilogue": 0,
+                 "phased_normalize": 0, "max_pool_s2d_bwd": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# exported C functions: name -> argument types (all return int)
+_SIGNATURES = {
+    "airseg_gathered_epilogue": [_I, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _P],
+    "airseg_phased_epilogue": [_I, _P, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _I,
+                               _LL, _I, _I, _P],
+    "airseg_phased_normalize": [_I, _P, _LL, _LL, _LL, _LL, _P, _P, _P, _LL, _I,
+                                _I, _P],
+    "airseg_max_pool_s2d_bwd": [_I, _P, _P, _P, _LL, _I, _I, _P],
+}
+
+
+class _Library:
+    """The compiled kernels: built on first use, then loaded with ctypes."""
+
+    def __init__(self):
+        self.lib = None
+        self.path = None
+        self.build_seconds = 0.0
+        self.build_log = ""
+
+    def load(self):
+        if self.lib is not None:
+            return self.lib
+        sources = [_CSRC / s for s in _SOURCES]
+        tag = hashlib.sha256(b"".join(s.read_bytes() for s in sources)).hexdigest()[:12]
+        path = _BUILD_DIR / f"libairseg_kernels_{tag}.so"
+        t0 = time.perf_counter()
+        if not path.exists():
+            self.build_log = _nvcc(sources, path)
+        self.build_seconds = time.perf_counter() - t0
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _I
+        self.lib, self.path = lib, path
+        return lib
+
+
+def _nvcc(sources: list[Path], out: Path) -> str:
+    """Compile each of `sources` to an object, one nvcc per source, all
+    started together, and link them into the shared library `out`;
+    returns nvcc's output (ptxas register and spill report included)."""
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        nvcc = str(Path(cuda_home) / "bin" / "nvcc")
+    arch = ["-gencode", "arch=compute_90a,code=sm_90a"]
+    out.parent.mkdir(parents=True, exist_ok=True)
+    # build in a temporary directory, then rename: a concurrent build
+    # never loads a half-written library
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sources]
+        procs = [subprocess.Popen([nvcc, *arch, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                                   "-Xptxas", "-v", "-c", "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        for src, proc, log in zip(sources, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{log}")
+        so = Path(tmp) / out.name
+        res = subprocess.run([nvcc, *arch, "-shared", "-o", str(so), *map(str, objs)],
+                             capture_output=True, text=True, check=False)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}{res.stderr}")
+        os.replace(so, out)
+    return "".join(logs) + res.stdout + res.stderr
+
+
+library = _Library()
+
+
+def build_kernels() -> _Library:
+    """Build (if needed) and load the kernel library; returns it, with
+    its `path`, `build_seconds` and `build_log`."""
+    library.load()
+    return library
+
+
+def launch(fn_name: str, count_name: str, *args) -> None:
+    """Call one exported launcher and count the launch; raises on a
+    refused launch."""
+    rc = getattr(library.load(), fn_name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{count_name} kernel launch failed: cudaError {rc}")
+    launch_counts[count_name] += 1

@@ -1,129 +1,61 @@
 """Fused epilogue of the s2d conv blocks: InstanceNorm affine, then
-LeakyReLU(0.01), then 0, 1 or 2 spatial SE gates, in one pass.
+LeakyReLU(0.01), then 0, 1 or 2 spatial SE gates, in one pass; and its
+backward.
 
-Counterpart of the JAX package's `ops/pallas_s2d.py`. Its four Pallas
-entry points on the inference path (`gated_norm_finalize[_bm]`,
-`phased_finalize[_bm]`) are two CUDA kernels here
-(`csrc/epilogue.cu`), built with nvcc for sm_90a at first use and
-bound through ctypes:
+Counterpart of the JAX package's `ops/pallas_s2d.py`. Its Pallas entry
+points on the inference and train paths are three CUDA kernels here
+(`csrc/epilogue.cu`, built and bound by `ops/cuda_lib.py`):
 
   * `gathered_epilogue`: over an already-gathered s2d conv output
-    (B, n, n, n, 8C);
+    (B, n, n, n, 8C) (gated_norm_finalize[_bm]);
   * `phased_epilogue`: over the phased conv's UNGATHERED output
     (B, n+1, n+1, xw, 8C); sub-position q = (a, b, c) of voxel
-    (z, y, x) reads y_ext[z+a, y+b, x+c] in lane block q.
+    (z, y, x) reads y_ext[z+a, y+b, x+c] in lane block q
+    (phased_finalize[_bm]);
+  * `phased_normalize`: the phased form without LeakyReLU and gates,
+    the normalized pre-activation that the phased backward reads
+    (phased_normalize).
 
 Each wrapper takes its plain PyTorch version (`*_plain`) for a CPU
 tensor only; on a CUDA tensor it launches the kernel or raises. Each
-counts its launches in `launch_counts`.
+counts its launches in `cuda_lib.launch_counts`.
 
 The block functions compute the InstanceNorm statistics in plain torch
-(f32 sums, var = E[y^2] - mean^2 clamped at 0, scale = rsqrt(var+eps),
-shift = mean*scale, e = y*scale - shift) and hand the affine to the
-kernels:
+(f32 sums, f64 for f64 inputs; var = E[y^2] - mean^2 clamped at 0,
+scale = rsqrt(var+eps), shift = mean*scale, e = y*scale - shift) and
+hand the affine to the kernels:
 
   * `gated_norm_block(y, wse)`: gathered form (dense-lift, grouped
     dil-2 and CATConv blocks);
   * `phased_gated_block(xs, w_all, b_all, wse)`: phased conv (cuDNN,
     list partial sums), 8-phase-window statistics, phased form.
+
+Under autograd each is a `torch.autograd.Function` whose backward is the
+JAX package's hand-written epilogue backward (`pallas_s2d.py:2362-2547`)
+in plain torch ops. It saves the block inputs only and recomputes the
+statistics (and, for the phased block, the conv) in backward. The gate
+weights are the compact (G, C) `wse`, so the backward returns their
+gradient directly. Without autograd (inference) the blocks call the
+forward alone.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
+from itertools import product
 
 import torch
 
+from .cuda_lib import launch
+from .norms import leaky_relu
 from .s2d import phase_windows, phased_conv_ext
 
 F32 = torch.float32
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "epilogue.cu"
-_BUILD_DIR = _SRC.parent / "build"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-launch_counts = {"gathered_epilogue": 0, "phased_epilogue": 0}
 
-
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
-
-
-# ------------------------------------------------------------------ build
-
-
-class _Library:
-    """The compiled kernel library: built from `csrc/epilogue.cu` on
-    first use into `csrc/build/` (named by the source's hash, so an
-    edited source builds anew), then loaded with ctypes."""
-
-    def __init__(self):
-        self.lib = None
-        self.path = None
-        self.build_seconds = 0.0
-        self.build_log = ""
-
-    def load(self):
-        if self.lib is not None:
-            return self.lib
-        src = _SRC.read_bytes()
-        tag = hashlib.sha256(src).hexdigest()[:12]
-        path = _BUILD_DIR / f"libairseg_epilogue_{tag}.so"
-        t0 = time.perf_counter()
-        if not path.exists():
-            self.build_log = _nvcc(_SRC, path)
-        self.build_seconds = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(path))
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.airseg_gathered_epilogue.argtypes = [i, p, p, p, p, p, i, ll, i, i, p]
-        lib.airseg_gathered_epilogue.restype = i
-        lib.airseg_phased_epilogue.argtypes = [i, p, ll, ll, ll, ll, p, p, p, p, i,
-                                               ll, i, i, p]
-        lib.airseg_phased_epilogue.restype = i
-        self.lib, self.path = lib, path
-        return lib
-
-
-def _nvcc(src: Path, out: Path) -> str:
-    """Compile `src` into the shared library `out`; returns nvcc's
-    output (ptxas register and spill report included)."""
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        nvcc = str(Path(cuda_home) / "bin" / "nvcc")
-    out.parent.mkdir(parents=True, exist_ok=True)
-    # build under a temporary name, then rename: a concurrent build
-    # never loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, str(src)]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return res.stdout + res.stderr
-
-
-_library = _Library()
-
-
-def build_kernels() -> _Library:
-    """Build (if needed) and load the kernels; returns the library
-    record with `path`, `build_seconds` and `build_log`."""
-    _library.load()
-    return _library
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """Accumulation type: float32, or float64 for float64 inputs."""
+    return torch.float64 if dtype == torch.float64 else F32
 
 
 # ----------------------------------------------------------- plain versions
@@ -133,15 +65,15 @@ def gathered_epilogue_plain(y, scale8, shift8, wse=None):
     """Plain PyTorch version of the gathered epilogue, with the kernel's
     rounding points. y (B, n, n, n, 8C); scale8/shift8 (B, 8C) f32;
     wse (G, C) in y's dtype or None."""
-    dt = y.dtype
+    dt, acc = y.dtype, _acc(y.dtype)
     bshape = (y.shape[0], 1, 1, 1, y.shape[-1])
-    e = y.to(F32) * scale8.reshape(bshape) - shift8.reshape(bshape)
+    e = y.to(acc) * scale8.reshape(bshape) - shift8.reshape(bshape)
     e = torch.where(e >= 0, e, 0.01 * e).to(dt)
     if wse is not None:
         c = y.shape[-1] // 8
         for g in range(wse.shape[0]):
             ep = e.unflatten(-1, (8, c))
-            logit = (ep.to(F32) * wse[g].to(F32)).sum(-1)
+            logit = (ep.to(acc) * wse[g].to(acc)).sum(-1)
             gate = torch.sigmoid(logit).to(dt)
             e = (ep * gate.unsqueeze(-1)).flatten(-2)
     return e
@@ -153,6 +85,17 @@ def phased_epilogue_plain(y_ext, scale8, shift8, wse=None):
     n = y_ext.shape[1] - 1
     y = torch.cat(phase_windows(y_ext, n), dim=-1)
     return gathered_epilogue_plain(y, scale8, shift8, wse)
+
+
+def phased_normalize_plain(y_ext, scale8, shift8):
+    """Plain PyTorch version of phased_normalize: the 8 phase windows of
+    y_ext, gathered, times scale8 minus shift8, rounded once to y_ext's
+    dtype."""
+    n = y_ext.shape[1] - 1
+    y = torch.cat(phase_windows(y_ext, n), dim=-1)
+    bshape = (y.shape[0], 1, 1, 1, y.shape[-1])
+    a = y.to(_acc(y.dtype)) * scale8.reshape(bshape) - shift8.reshape(bshape)
+    return a.to(y.dtype)
 
 
 # ------------------------------------------------------------- wrappers
@@ -182,90 +125,287 @@ def _check_common(y, scale8, shift8, wse, c8):
     return vec
 
 
-def _launch(fn, name, *args):
-    rc = fn(*args)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-    launch_counts[name] += 1
+def _on_card(t) -> bool:
+    """False for a CPU tensor (the caller takes the plain version); True
+    for a CUDA tensor; raises for any other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return True
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def gathered_epilogue(y, scale8, shift8, wse=None):
     """Gathered epilogue: y (B, n, n, n, 8C) contiguous -> same shape.
     Replaces gated_norm_finalize_bm / gated_norm_finalize."""
-    if y.device.type == "cpu":
+    if not _on_card(y):
         return gathered_epilogue_plain(y, scale8, shift8, wse)
-    if y.device.type != "cuda":
-        raise ValueError(f"unsupported device {y.device}")
     b, n, c8 = y.shape[0], y.shape[1], y.shape[-1]
     if y.dim() != 5 or y.shape[1:4] != (n, n, n) or not y.is_contiguous():
         raise ValueError(f"y must be a contiguous (B, n, n, n, 8C) tensor, got "
                          f"{tuple(y.shape)}")
     _check_common(y, scale8, shift8, wse, c8)
-    lib = _library.load()
     out = torch.empty_like(y)
     with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream(y.device).cuda_stream
-        _launch(lib.airseg_gathered_epilogue, "gathered_epilogue",
-                _DTYPE_CODE[y.dtype], y.data_ptr(), out.data_ptr(), scale8.data_ptr(),
-                shift8.data_ptr(), None if wse is None else wse.data_ptr(),
-                0 if wse is None else wse.shape[0], b, n, c8, stream)
+        launch("airseg_gathered_epilogue", "gathered_epilogue",
+               _DTYPE_CODE[y.dtype], y.data_ptr(), out.data_ptr(), scale8.data_ptr(),
+               shift8.data_ptr(), None if wse is None else wse.data_ptr(),
+               0 if wse is None else wse.shape[0], b, n, c8, _stream(y))
     return out
+
+
+def _check_phased(y_ext, scale8, shift8, wse):
+    """Shape and stride checks of the phased kernels; returns
+    (B, n, 8C, (sb, sz, sy, sx))."""
+    b, m, c8 = y_ext.shape[0], y_ext.shape[1], y_ext.shape[-1]
+    if y_ext.dim() != 5 or y_ext.shape[2] != m or y_ext.shape[3] < m \
+            or y_ext.stride(4) != 1:
+        raise ValueError(f"y_ext must be (B, n+1, n+1, xw>=n+1, 8C) with unit "
+                         f"channel stride, got {tuple(y_ext.shape)}")
+    vec = _check_common(y_ext, scale8, shift8, wse, c8)
+    strides = tuple(y_ext.stride(i) for i in range(4))
+    if any(s % vec for s in strides):
+        raise ValueError("y_ext strides must be multiples of 16 bytes")
+    return b, m - 1, c8, strides
 
 
 def phased_epilogue(y_ext, scale8, shift8, wse=None):
     """Phased epilogue: y_ext (B, n+1, n+1, xw, 8C), xw >= n+1, any
     16-byte-aligned strides with a unit channel stride -> gathered
     (B, n, n, n, 8C). Replaces phased_finalize_bm / phased_finalize."""
-    if y_ext.device.type == "cpu":
+    if not _on_card(y_ext):
         return phased_epilogue_plain(y_ext, scale8, shift8, wse)
-    if y_ext.device.type != "cuda":
-        raise ValueError(f"unsupported device {y_ext.device}")
-    b, m, c8 = y_ext.shape[0], y_ext.shape[1], y_ext.shape[-1]
-    n = m - 1
-    if y_ext.dim() != 5 or y_ext.shape[2] != m or y_ext.shape[3] < m \
-            or y_ext.stride(4) != 1:
-        raise ValueError(f"y_ext must be (B, n+1, n+1, xw>=n+1, 8C) with unit "
-                         f"channel stride, got {tuple(y_ext.shape)}")
-    vec = _check_common(y_ext, scale8, shift8, wse, c8)
-    sb, sz, sy, sx = (y_ext.stride(i) for i in range(4))
-    if any(s % vec for s in (sb, sz, sy, sx)):
-        raise ValueError("y_ext strides must be multiples of 16 bytes")
-    lib = _library.load()
+    b, n, c8, (sb, sz, sy, sx) = _check_phased(y_ext, scale8, shift8, wse)
     out = torch.empty((b, n, n, n, c8), dtype=y_ext.dtype, device=y_ext.device)
     with torch.cuda.device(y_ext.device):
-        stream = torch.cuda.current_stream(y_ext.device).cuda_stream
-        _launch(lib.airseg_phased_epilogue, "phased_epilogue",
-                _DTYPE_CODE[y_ext.dtype], y_ext.data_ptr(), sb, sz, sy, sx,
-                out.data_ptr(), scale8.data_ptr(), shift8.data_ptr(),
-                None if wse is None else wse.data_ptr(),
-                0 if wse is None else wse.shape[0], b, n, c8, stream)
+        launch("airseg_phased_epilogue", "phased_epilogue",
+               _DTYPE_CODE[y_ext.dtype], y_ext.data_ptr(), sb, sz, sy, sx,
+               out.data_ptr(), scale8.data_ptr(), shift8.data_ptr(),
+               None if wse is None else wse.data_ptr(),
+               0 if wse is None else wse.shape[0], b, n, c8, _stream(y_ext))
     return out
 
 
-# ------------------------------------------------------------ block functions
+def phased_normalize(y_ext, scale8, shift8):
+    """Phase gather + InstanceNorm affine only: y_ext as for
+    `phased_epilogue` -> a (B, n, n, n, 8C) = dtype(y * scale8 - shift8).
+    Replaces phased_normalize."""
+    if not _on_card(y_ext):
+        return phased_normalize_plain(y_ext, scale8, shift8)
+    b, n, c8, (sb, sz, sy, sx) = _check_phased(y_ext, scale8, shift8, None)
+    out = torch.empty((b, n, n, n, c8), dtype=y_ext.dtype, device=y_ext.device)
+    with torch.cuda.device(y_ext.device):
+        launch("airseg_phased_normalize", "phased_normalize",
+               _DTYPE_CODE[y_ext.dtype], y_ext.data_ptr(), sb, sz, sy, sx,
+               out.data_ptr(), scale8.data_ptr(), shift8.data_ptr(), b, n, c8,
+               _stream(y_ext))
+    return out
+
+
+# --------------------------------------------------------- statistics
 
 
 def _affine8(s1, s2, nvox: int, eps: float):
-    """(B, C) f32 sums -> the phase-tiled (B, 8C) scale8 and shift8."""
+    """(B, C) sums -> the phase-tiled (B, 8C) scale8 and shift8."""
     mean = s1 / nvox
     var = torch.clamp(s2 / nvox - torch.square(mean), min=0.0)
     scale = torch.rsqrt(var + eps)
     return scale.repeat(1, 8).contiguous(), (mean * scale).repeat(1, 8).contiguous()
 
 
-def gated_norm_block(y, wse=None, eps: float = 1e-5):
-    """InstanceNorm (per original channel, over space x 8 sub-positions)
-    + LeakyReLU + SE gate(s) of a gathered s2d conv output."""
-    y = y.contiguous()
+def _gathered_affine(y, eps: float):
+    """InstanceNorm affine of a gathered s2d tensor (per original channel,
+    over space x 8 sub-positions)."""
     b, c8 = y.shape[0], y.shape[-1]
     c = c8 // 8
-    yf = y.to(F32)
+    yf = y.to(_acc(y.dtype))
     s1 = yf.sum(dim=(1, 2, 3)).reshape(b, 8, c).sum(1)
     s2 = torch.square(yf).sum(dim=(1, 2, 3)).reshape(b, 8, c).sum(1)
     del yf
-    nvox = y.shape[1] * y.shape[2] * y.shape[3] * 8
-    scale8, shift8 = _affine8(s1, s2, nvox, eps)
+    return _affine8(s1, s2, y.shape[1] * y.shape[2] * y.shape[3] * 8, eps)
+
+
+def _phased_affine(y_ext, n: int, eps: float):
+    """InstanceNorm affine over the 8 phase windows of a phased conv's
+    ungathered output."""
+    acc = _acc(y_ext.dtype)
+    s1 = s2 = 0.0
+    for sl in phase_windows(y_ext, n):
+        slf = sl.to(acc)
+        s1 = s1 + slf.sum(dim=(1, 2, 3))
+        s2 = s2 + torch.square(slf).sum(dim=(1, 2, 3))
+    del slf
+    return _affine8(s1, s2, 8 * n * n * n, eps)
+
+
+# ---------------------------------------------------------- backwards
+
+
+def _gate_chain_bwd(e0, wse, ct):
+    """Backward of the SE gate chain e_{g+1} = e_g * sigmoid(<e_g, w_g>)
+    (per sub-position of an s2d tensor), given the pre-gate tensor e0
+    (..., 8C). Returns (d_e0, d_wse) with d_wse (G, C), or None without
+    gates. Port of `_gate_chain_bwd` (pallas_s2d.py:2362) on the compact
+    gate vectors: the one-hot re-expansion is a constant and has no
+    cotangent."""
+    dt = e0.dtype
+    if wse is None:
+        return ct.to(dt), None
+    c = wse.shape[1]
+    w = wse.to(dt)
+    es, gates = [e0], []
+    for g in range(wse.shape[0]):
+        e8 = es[-1].unflatten(-1, (8, c))
+        gate = torch.sigmoid(e8 @ w[g])
+        gates.append(gate)
+        if g < wse.shape[0] - 1:
+            es.append((e8 * gate.unsqueeze(-1)).flatten(-2))
+    d = ct.to(dt)
+    dws = [None] * len(gates)
+    for g in reversed(range(len(gates))):
+        e8, gate = es[g].unflatten(-1, (8, c)), gates[g]
+        d8 = d.unflatten(-1, (8, c))
+        dlog = (d8 * e8).sum(-1) * gate * (1 - gate)
+        dws[g] = (e8.reshape(-1, c).transpose(0, 1) @ dlog.reshape(-1))
+        d = (d8 * gate.unsqueeze(-1) + dlog.unsqueeze(-1) * w[g]).flatten(-2)
+    return d, torch.stack(dws)
+
+
+def _core_bwd_from_a(a, scale8, wse, ct, nvox: int):
+    """Backward of e = gates(LeakyReLU(a)) and of the InstanceNorm that
+    made a = y*scale - shift, given a: gate chain backward, then the
+    IN + LeakyReLU backward with both statistics sums, Q = sum(da) and
+    R = sum(da * a) per original channel (`_core_bwd_from_a`,
+    pallas_s2d.py:2409). The LeakyReLU mask is taken on the rounded a."""
+    acc = _acc(a.dtype)
+    b, c8 = a.shape[0], a.shape[-1]
+    c = c8 // 8
+    d_e0, d_wse = _gate_chain_bwd(leaky_relu(a), wse, ct)
+    af = a.to(acc)
+    d = d_e0.to(acc)
+    daf = torch.where(a >= 0, d, d * 0.01)
+    del d, d_e0
+    q = daf.sum(dim=(1, 2, 3)).reshape(b, 8, c).sum(1).repeat(1, 8)
+    r = (daf * af).sum(dim=(1, 2, 3)).reshape(b, 8, c).sum(1).repeat(1, 8)
+    bshape = (b, 1, 1, 1, c8)
+    dy = scale8.reshape(bshape) * (daf - (q.reshape(bshape) + af * r.reshape(bshape)) / nvox)
+    return dy.to(a.dtype), d_wse
+
+
+def _gated_core_bwd(y, wse, ct, eps: float = 1e-5):
+    """Backward of the gathered block e = gates(LeakyReLU(IN(y))): the
+    statistics and the normalized a recomputed from y, then
+    `_core_bwd_from_a` (`_gated_core_bwd`, pallas_s2d.py:2437).
+    Returns (dy, d_wse)."""
+    scale8, shift8 = _gathered_affine(y, eps)
+    bshape = (y.shape[0], 1, 1, 1, y.shape[-1])
+    a = (y.to(scale8.dtype) * scale8.reshape(bshape) - shift8.reshape(bshape)).to(y.dtype)
+    return _core_bwd_from_a(a, scale8, wse, ct, 8 * y.shape[1] * y.shape[2] * y.shape[3])
+
+
+def _manual_phased_gated_bwd(xs, w_all, b_all, wse, ct, eps: float = 1e-5,
+                             needs=None):
+    """Backward of the phased block (`_manual_phased_gated_bwd`,
+    pallas_s2d.py:2467): replay the phased conv under autograd, recompute
+    the window statistics, take the normalized a from `phased_normalize`,
+    run the core backward in the gathered layout, scatter the cotangent
+    back to the conv's (n+1)^3 output and take the conv's backward.
+
+    `needs`: which of (xs..., w_all, b_all) want a gradient (default
+    all). Returns (dxs, dw_all, db_all, d_wse); None where not wanted."""
+    xs = list(xs)
+    n = xs[0].shape[1]
+    co = w_all.shape[-1] // 8
+    inputs = [*xs, w_all, b_all]
+    needs = needs if needs is not None else [t is not None for t in inputs]
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(need) if t is not None else None
+                  for t, need in zip(inputs, needs)]
+        y = phased_conv_ext(leaves[:-2], leaves[-2], leaves[-1])
+    yd = y.detach().contiguous()
+    scale8, shift8 = _phased_affine(yd, n, eps)
+    a = phased_normalize(yd, scale8, shift8)
+    dyg, d_wse = _core_bwd_from_a(a, scale8, wse, ct, 8 * n * n * n)
+    del a, yd
+    dy_ext = torch.zeros_like(y)
+    for q, (az, bb, cc) in enumerate(product(range(2), repeat=3)):
+        dy_ext[:, az:az + n, bb:bb + n, cc:cc + n, q * co:(q + 1) * co] = \
+            dyg[..., q * co:(q + 1) * co]
+    del dyg
+    wanted = [t for t, need in zip(leaves, needs) if need]
+    grads = iter(torch.autograd.grad(y, wanted, dy_ext) if wanted else ())
+    out = [next(grads) if need else None for need in needs]
+    return out[:-2], out[-2], out[-1], d_wse
+
+
+# ------------------------------------------------------------ block functions
+
+
+def _gated_norm_forward(y, wse, eps):
+    y = y.contiguous()
+    scale8, shift8 = _gathered_affine(y, eps)
     return gathered_epilogue(y, scale8, shift8, wse)
+
+
+def _phased_forward(xs, w_all, b_all, wse, eps):
+    n = xs[0].shape[1]
+    y = phased_conv_ext(xs, w_all, b_all).contiguous()
+    scale8, shift8 = _phased_affine(y, n, eps)
+    return phased_epilogue(y, scale8, shift8, wse)
+
+
+class _GatedNormBlock(torch.autograd.Function):
+    """gated_norm_block under autograd: saves y (and wse); backward =
+    `_gated_core_bwd` (the custom vjp of pallas_s2d.py:852-872)."""
+
+    @staticmethod
+    def forward(ctx, y, wse, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(y, wse)
+        return _gated_norm_forward(y, wse, eps)
+
+    @staticmethod
+    def backward(ctx, ct):
+        y, wse = ctx.saved_tensors
+        dy, d_wse = _gated_core_bwd(y, wse, ct, ctx.eps)
+        return (dy if ctx.needs_input_grad[0] else None,
+                d_wse if ctx.needs_input_grad[1] else None, None)
+
+
+class _PhasedGatedBlock(torch.autograd.Function):
+    """phased_gated_block under autograd: saves the block inputs only
+    (xs, w_all, b_all, wse); backward = `_manual_phased_gated_bwd` (the
+    custom vjp of pallas_s2d.py:1031-1054)."""
+
+    @staticmethod
+    def forward(ctx, w_all, b_all, wse, eps, *xs):
+        ctx.eps = eps
+        ctx.save_for_backward(w_all, b_all, wse, *xs)
+        return _phased_forward(list(xs), w_all, b_all, wse, eps)
+
+    @staticmethod
+    def backward(ctx, ct):
+        w_all, b_all, wse, *xs = ctx.saved_tensors
+        ng = ctx.needs_input_grad
+        dxs, dw, db, d_wse = _manual_phased_gated_bwd(
+            xs, w_all, b_all, wse, ct, ctx.eps, needs=[*ng[4:], ng[0], ng[1]])
+        return (dw, db, d_wse if ng[2] else None, None, *dxs)
+
+
+def _wants_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts)
+
+
+def gated_norm_block(y, wse=None, eps: float = 1e-5):
+    """InstanceNorm (per original channel, over space x 8 sub-positions)
+    + LeakyReLU + SE gate(s) of a gathered s2d conv output."""
+    if _wants_grad(y, wse):
+        return _GatedNormBlock.apply(y, wse, eps)
+    return _gated_norm_forward(y, wse, eps)
 
 
 def phased_gated_block(xs, w_all, b_all, wse=None, eps: float = 1e-5):
@@ -274,13 +414,6 @@ def phased_gated_block(xs, w_all, b_all, wse=None, eps: float = 1e-5):
     the 8 phase windows of the ungathered output, then the phased
     epilogue."""
     xs = list(xs)
-    n = xs[0].shape[1]
-    y = phased_conv_ext(xs, w_all, b_all).contiguous()
-    s1 = s2 = 0.0
-    for sl in phase_windows(y, n):
-        slf = sl.to(F32)
-        s1 = s1 + slf.sum(dim=(1, 2, 3))
-        s2 = s2 + torch.square(slf).sum(dim=(1, 2, 3))
-    del slf
-    scale8, shift8 = _affine8(s1, s2, 8 * n * n * n, eps)
-    return phased_epilogue(y, scale8, shift8, wse)
+    if _wants_grad(*xs, w_all, b_all, wse):
+        return _PhasedGatedBlock.apply(w_all, b_all, wse, eps, *xs)
+    return _phased_forward(xs, w_all, b_all, wse, eps)

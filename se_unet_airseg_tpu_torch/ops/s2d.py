@@ -1,5 +1,5 @@
 """Space-to-depth (s2d) algebra for the full-resolution UNet levels
-(eval-path subset of the JAX package's `ops/s2d.py`).
+(the subset of the JAX package's `ops/s2d.py` that the fast path runs).
 
 Each 2x2x2 block of voxels folds into the channel axis, sub-position
 major: (B, 2n, 2n, 2n, C) <-> (B, n, n, n, 8C), lane p*C + c with
@@ -15,7 +15,10 @@ rewritten exactly on the folded tensors:
     block conv with phase-stacked output channels; phase q then takes a
     shifted window of the (n+1)^3 output (the "phased" conv);
   * `upsample_to_s2d`: align_corners trilinear upsampling emitted
-    straight into s2d layout.
+    straight into s2d layout;
+  * `max_pool_s2d`: the 2x2x2 max pool as a maximum over the 8
+    sub-positions; its backward (a CUDA kernel on the card) splits the
+    cotangent evenly among tied maxima.
 
 Weights are DHWIO, as in the JAX package.
 """
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from .conv import conv3d
+from .cuda_lib import launch
 from .norms import leaky_relu
 from .resize import _interp_matrix, contract_axis
 
@@ -192,10 +196,83 @@ def se_gate_s2d_pre(x: torch.Tensor, wg: torch.Tensor, onehot: torch.Tensor):
     return x * (gate @ onehot)
 
 
+def _max_pool_s2d_fwd(x: torch.Tensor) -> torch.Tensor:
+    return x.unflatten(-1, (8, x.shape[-1] // 8)).amax(dim=-2)
+
+
+def max_pool_s2d_bwd_plain(x: torch.Tensor, g: torch.Tensor | None = None):
+    """Plain PyTorch version of the pool backward kernel. Per (voxel,
+    channel) of x (B, n, n, n, 8C), compared in f32: with g (B, n, n, n,
+    C) it returns dx, whose tied maxima each get dtype(g / n_ties) and
+    every other lane 0; without g the mask with dtype(1 / n_ties)."""
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    x8 = x.unflatten(-1, (8, x.shape[-1] // 8)).to(acc)
+    eq = x8 == x8.amax(dim=-2, keepdim=True)
+    cnt = eq.sum(dim=-2, keepdim=True).to(acc)
+    if g is None:
+        val = (1.0 / cnt).to(x.dtype)
+    else:
+        val = (g.unsqueeze(-2).to(acc) / cnt).to(g.dtype)
+    return torch.where(eq, val, 0.0).flatten(-2)
+
+
+def max_pool_s2d_bwd(x: torch.Tensor, g: torch.Tensor | None = None):
+    """Backward of `max_pool_s2d` in one pass over x (CUDA kernel
+    `csrc/pool_s2d.cu`; replaces max_pool_s2d_bwd_mask). With the
+    cotangent g it returns dx; without, the tie-split mask. Takes the
+    plain version for a CPU tensor only; on a CUDA tensor it launches
+    the kernel or raises. Any channel width."""
+    if x.device.type == "cpu":
+        return max_pool_s2d_bwd_plain(x, g)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    code = {torch.float32: 0, torch.bfloat16: 1}.get(x.dtype)
+    if code is None:
+        raise TypeError(f"the pool backward kernel takes float32 or bfloat16, got {x.dtype}")
+    c8 = x.shape[-1]
+    if c8 % 8 or x.numel() == 0:
+        raise ValueError(f"x must be a non-empty (..., 8C) tensor, got {tuple(x.shape)}")
+    c = c8 // 8
+    x = x.contiguous()
+    if g is not None:
+        if g.shape != x.shape[:-1] + (c,) or g.dtype != x.dtype or g.device != x.device:
+            raise ValueError(f"g must be a {x.dtype} {tuple(x.shape[:-1]) + (c,)} tensor "
+                             f"on {x.device}")
+        g = g.contiguous()
+    out = torch.empty_like(x)
+    vec = 16 // x.element_size()
+    ptrs = [t.data_ptr() for t in (x, out, g) if t is not None]
+    if c % vec or any(p % 16 for p in ptrs):
+        vec = 1
+    with torch.cuda.device(x.device):
+        launch("airseg_max_pool_s2d_bwd", "max_pool_s2d_bwd", code,
+               x.data_ptr(), None if g is None else g.data_ptr(), out.data_ptr(),
+               x.numel() // c8, c, vec, torch.cuda.current_stream(x.device).cuda_stream)
+    return out
+
+
+class _MaxPoolS2d(torch.autograd.Function):
+    """max_pool_s2d under autograd: saves x only; backward splits the
+    cotangent evenly among tied maxima (the custom vjp of the JAX
+    package's s2d.py:210-276)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _max_pool_s2d_fwd(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return max_pool_s2d_bwd(x, g)
+
+
 def max_pool_s2d(x: torch.Tensor) -> torch.Tensor:
     """MaxPool3d(2, 2) of the underlying image: the maximum over the 8
     sub-positions, (B, n, n, n, 8C) -> (B, n, n, n, C)."""
-    return x.unflatten(-1, (8, x.shape[-1] // 8)).amax(dim=-2)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _MaxPoolS2d.apply(x)
+    return _max_pool_s2d_fwd(x)
 
 
 @lru_cache(maxsize=None)

@@ -163,10 +163,13 @@ def test_init_is_seeded_by_generator():
 
 
 def test_train_mode_raises(weights):
+    """train=True without DropLayer draws (a generator or `drop_draws`)
+    raises: it never runs eval quietly. Train mode itself is held
+    against the JAX package in tests/test_torch_train.py."""
     _, tree = weights
     x = torch.zeros(1, 16, 16, 16, 2)
     for fn in (se_unet_apply, se_unet_apply_fast):
-        with pytest.raises(NotImplementedError, match="train slice"):
+        with pytest.raises(ValueError, match="generator or drop_draws"):
             fn(tree, x, cfg=SEUNetConfig(), train=True)
 
 
