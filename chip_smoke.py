@@ -39,7 +39,25 @@ Needs one CUDA card and nvcc; exits non-zero without them. Phases:
    lumen label): one warm-up step, then TRAIN_STEPS timed steps; the
    launches must read 10/5/5/2 per step, every loss must be finite and
    the batch's loss under one fixed set of DropLayer draws must fall;
-9. a `kernels` JSON line, then the card line, then the last line
+9. conv_stats kernels: `phased_conv_stats` at the 5 phased and
+   `dil2_conv_stats` at the 3 dil-2 call shapes of the conv_stats
+   configuration (batch 8, bf16) against their plain versions: y within
+   one bf16 ulp (plus 2^-18 of the sum of |terms|, the f32 reordering
+   floor near zero), s1/s2 within 1e-4 of each channel's sum of |y| and
+   y^2; with ms, the plain version's ms, the bound (bf16 FLOPs at
+   989 TFLOP/s against bytes at 3.35 TB/s) and, as `library_ms`, cuDNN's
+   bf16 conv alone (the 2^3 phased kernel, or the port's grouped dil-2
+   conv), without gather and sums;
+10. conv_stats parity: `apply_fast(SEUNetConfig(conv_stats=True))` in
+   float32 on the card against the CPU and against the default
+   configuration (64^3, batch 2, rtol 1e-3, atol 1e-4); in bf16 against
+   the default configuration on one 128^3 batch of 8 (relative L2 of each
+   head at most 5e-2);
+11. conv_stats path: the runner of phase 6 under `conv_stats`, one
+   warm-up volume and CS_VOLUMES timed volumes; the launches must read 5
+   `phased_conv_stats`, 3 `dil2_conv_stats`, 7 gathered and 0 phased
+   epilogues per tile batch;
+12. a `kernels` JSON line, then the card line, then the last line
    `{"ok": true, "device": {...}}`.
 
 Any failure raises and exits non-zero.
@@ -47,7 +65,9 @@ Any failure raises and exits non-zero.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -64,8 +84,9 @@ from se_unet_airseg_tpu_torch.models import (
     se_unet_apply,
     se_unet_apply_fast,
 )
-from se_unet_airseg_tpu_torch.models.se_unet import _leaves, _tree_map
-from se_unet_airseg_tpu_torch.ops import build_kernels, hu_dual_window, launch_counts
+from se_unet_airseg_tpu_torch.models.se_unet import _DIL2_NG, _leaves, _tree_map
+from se_unet_airseg_tpu_torch.ops import build_kernels, conv3d, hu_dual_window, launch_counts
+from se_unet_airseg_tpu_torch.ops import conv_stats as pcs
 from se_unet_airseg_tpu_torch.ops import epilogue_s2d as eps
 from se_unet_airseg_tpu_torch.ops import reset_launch_counts
 from se_unet_airseg_tpu_torch.ops import s2d as ps2d
@@ -78,9 +99,11 @@ from se_unet_airseg_tpu_torch.train import (
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12        # H100 SXM bf16 tensor cores, dense
 BATCH = 8
 SHAPE = (320, 256, 320)
 TIMED_VOLUMES = 5
+CS_VOLUMES = 3
 TRAIN_STEPS = 10
 # (block, s2d grid n, 8C, gates) of every epilogue call per tile batch of
 # 128^3 tiles (n = 64 at the full-resolution level, 32 at the 1/2 level)
@@ -93,6 +116,12 @@ PHASED = [("ec4", 32, 256, 2), ("dc3", 32, 512, 2), ("dc4", 32, 256, 2),
 # (tensor, s2d grid n, 8C) of the two pools that carry a gradient per
 # train batch of 128^3 crops
 POOLS = [("e1", 64, 256), ("e3s", 32, 512)]
+# conv_stats calls per tile batch: (block, n, input lanes of each input,
+# Co) of the phased blocks; (block, n, Ci, Co) of the dil-2 blocks
+CS_PHASED = [("ec4", 32, (256,), 32), ("dc3", 32, (512, 512), 64), ("dc4", 32, (512,), 32),
+             ("dc5", 64, (256, 256), 32), ("dc6", 64, (256,), 16)]
+CS_DIL2 = [("ec3", 64, 16, 32), ("ec5", 32, 32, 32), ("ec6", 32, 32, 64)]
+CS_SRC = "se_unet_airseg_tpu_torch/csrc/conv_stats.cu"
 EPI_SRC = "se_unet_airseg_tpu_torch/csrc/epilogue.cu"
 KERNELS = {  # name: (the Pallas functions it replaces, source)
     "gathered_epilogue": ("se_unet_airseg_tpu/ops/pallas_s2d.py:1156; "
@@ -102,10 +131,20 @@ KERNELS = {  # name: (the Pallas functions it replaces, source)
     "phased_normalize": ("se_unet_airseg_tpu/ops/pallas_s2d.py:581", EPI_SRC),
     "max_pool_s2d_bwd": ("se_unet_airseg_tpu/ops/pallas_s2d.py:671",
                          "se_unet_airseg_tpu_torch/csrc/pool_s2d.cu"),
+    "phased_conv_stats": ("se_unet_airseg_tpu/ops/pallas_s2d.py:1081", CS_SRC),
+    "dil2_conv_stats": ("se_unet_airseg_tpu/ops/pallas_s2d.py:404", CS_SRC),
 }
 EPILOGUE_TABLES = {"gathered_epilogue": GATHERED, "phased_epilogue": PHASED}
-STEP_LAUNCHES = {"gathered_epilogue": 10, "phased_epilogue": 5, "phased_normalize": 5,
-                 "max_pool_s2d_bwd": 2}
+
+
+def counts(**nonzero) -> dict:
+    """Every kernel's launch count: `nonzero`, 0 for the others."""
+    return {k: nonzero.get(k, 0) for k in launch_counts}
+
+
+STEP_LAUNCHES = counts(gathered_epilogue=10, phased_epilogue=5, phased_normalize=5,
+                       max_pool_s2d_bwd=2)
+CS_LAUNCHES = counts(gathered_epilogue=7, phased_conv_stats=5, dil2_conv_stats=3)
 
 
 def emit(obj) -> None:
@@ -312,8 +351,7 @@ def model_parity_phase():
         fast_cpu = se_unet_apply_fast(tree_cpu, x, cfg=cfg)
         bf16_cfg = SEUNetConfig(compute_dtype=torch.bfloat16)
         fast_bf16 = se_unet_apply_fast(tree_gpu, x.cuda(), cfg=bf16_cfg)
-    if launched != {"gathered_epilogue": 10, "phased_epilogue": 5, "phased_normalize": 0,
-                    "max_pool_s2d_bwd": 0}:
+    if launched != counts(gathered_epilogue=10, phased_epilogue=5):
         raise AssertionError(f"f32 apply_fast launched {launched}")
     res = {"launches_f32": launched}
     for name, a, b in (("gpu_vs_cpu", fast_gpu, fast_cpu), ("fast_vs_apply", fast_gpu, ref_gpu)):
@@ -409,8 +447,7 @@ def main_path_phase(vol: np.ndarray):
         vol_s.append(time.perf_counter() - t0)
     launches = dict(launch_counts)
     n_batches *= TIMED_VOLUMES
-    if launches != {"gathered_epilogue": 10 * n_batches, "phased_epilogue": 5 * n_batches,
-                    "phased_normalize": 0, "max_pool_s2d_bwd": 0}:
+    if launches != counts(gathered_epilogue=10 * n_batches, phased_epilogue=5 * n_batches):
         raise AssertionError(f"main path launches {launches}, want 10 and 5 per batch")
     if trits.shape != SHAPE or trits.dtype != np.uint8 or trits.max() > 2:
         raise AssertionError(f"bad trit field {trits.shape} {trits.dtype}")
@@ -425,6 +462,195 @@ def main_path_phase(vol: np.ndarray):
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches,
         "trit_counts": np.bincount(trits.ravel(), minlength=3).tolist()}})
+    return launches, trits
+
+
+def cs_bound(flops: float, nbytes: float):
+    """(least ms, what binds it): bf16 FLOPs at the tensor-core peak
+    against bytes at the memory rate."""
+    t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def conv_stats_call(name, block, shape, kernel, plain, mag, library, flops, nbytes, agg):
+    """Hold one conv_stats call against its plain version, time it, and
+    emit its line: y within one bf16 ulp plus 2^-18 of the sum of |terms|
+    `mag` (the two sum in f32 in another order, which near zero moves y
+    by more than an ulp); s1, s2 within 1e-4 of each channel's sum of |y|
+    and of y^2."""
+    (y, s1, s2), (ry, r1, r2) = kernel(), plain()
+    m = mag().float()
+    torch.cuda.synchronize()
+    d = (y.float() - ry.float()).abs()
+    y_ok = bool((d <= bf16_ulp(ry) + 2.0 ** -18 * m).all())
+    ryf = ry.float()
+    s_err = 0.0
+    s_ok = True
+    for s, rs, mags in ((s1, r1, ryf.abs()), (s2, r2, ryf.square())):
+        lim = 1e-4 * mags.sum(dim=(1, 2, 3))
+        s_ok &= bool(((s - rs).abs() <= lim).all())
+        s_err = max(s_err, float(((s - rs).abs() / lim).max()))
+    del m, ryf
+    if not (y_ok and s_ok and torch.isfinite(y.float()).all()):
+        raise AssertionError(f"{name} {block}: kernel disagrees with its plain version "
+                             f"(max |dy| {float(d.max())}, sums at {s_err} of the limit)")
+    frac = float((d > 0).float().mean())
+    err = float(d.max())
+    del y, s1, s2, ry, r1, r2, d
+    ms = cuda_ms(kernel)
+    b_ms, b_by = cs_bound(flops, nbytes)
+    line = {"kernel": name, "block": block, "shape": shape, "ms": ms, "bound_ms": b_ms,
+            "bound_by": b_by, "x_bound": ms / b_ms, "tflops": flops / ms / 1e9,
+            "plain_ms": cuda_ms(plain), "library_ms": cuda_ms(library),
+            "library": "cuDNN bf16 conv only: no phase gather, no sums",
+            "max_abs_diff": err, "frac_elements_differing": frac,
+            "sums_err_of_limit": s_err}
+    emit(line)
+    add_call(agg, line)
+
+
+def conv_stats_kernel_phase():
+    """phased_conv_stats at its 5 and dil2_conv_stats at its 3 call
+    shapes of the conv_stats configuration (batch 8, bf16, seeded
+    inputs), each against its plain version; the library call is cuDNN's
+    bf16 conv of the same kernel (K8: the 2^3 phased kernel on the concat;
+    K9: the port's grouped dil-2 conv)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    bf = torch.bfloat16
+    summary = {"phased_conv_stats": new_summary(), "dil2_conv_stats": new_summary()}
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+
+    for block, n, cis, co in CS_PHASED:
+        xs = [randn(BATCH, n, n, n, c).to(bf) for c in cis]
+        cin, vox = sum(cis), BATCH * n ** 3
+        w = randn(8, cin, 8 * co, scale=1 / math.sqrt(8 * cin)).to(bf)
+        b = randn(8 * co, scale=0.1)
+        xcat = torch.cat(xs, dim=-1)
+        w5 = w.reshape(2, 2, 2, cin, 8 * co)
+        conv_stats_call(
+            "phased_conv_stats", block, [BATCH, n, n, n, list(cis), 8 * co],
+            lambda: pcs.phased_conv_stats(xs, w, b),
+            lambda: pcs.phased_conv_stats_plain(xs, w, b),
+            lambda: pcs.phased_conv_stats_plain([t.abs() for t in xs], w.abs(), 0 * b)[0],
+            lambda: conv3d(xcat, w5, padding=1),
+            2 * vox * 8 * cin * 8 * co,
+            2 * (vox * cin + vox * 8 * co + w.numel()) + 4 * (b.numel() + 2 * BATCH * 8 * co),
+            summary["phased_conv_stats"])
+        del xs, w, b, xcat, w5
+        torch.cuda.empty_cache()
+    for block, n, ci, co in CS_DIL2:
+        x = randn(BATCH, n, n, n, 8 * ci).to(bf)
+        vox = BATCH * n ** 3
+        w = randn(3, 3, 3, ci, co, scale=1 / math.sqrt(27 * ci)).to(bf)
+        b = randn(co, scale=0.1)
+        ng = _DIL2_NG[block]
+        wg = ps2d.dil2_group_weight(w, ng, bf)
+        conv_stats_call(
+            "dil2_conv_stats", block, [BATCH, n, n, n, 8 * ci, 8 * co],
+            lambda: pcs.dil2_conv_stats(x, w, b),
+            lambda: pcs.dil2_conv_stats_plain(x, w, b),
+            lambda: pcs.dil2_conv_stats_plain(x.abs(), w.abs(), 0 * b)[0],
+            lambda: conv3d(x, wg, padding=1, groups=ng),
+            2 * vox * 8 * 27 * ci * co,
+            2 * (vox * 8 * ci + vox * 8 * co + w.numel()) + 4 * (co + 2 * BATCH * 8 * co),
+            summary["dil2_conv_stats"])
+        del x, w, b, wg
+        torch.cuda.empty_cache()
+    return summary
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+def conv_stats_parity_phase():
+    """apply_fast under conv_stats: f32 on the card (kernels) against
+    the CPU (plain versions) and against the default configuration on the
+    card, 64^3, batch 2; bf16 against the default configuration on one
+    128^3 batch of 8."""
+    cfg_d, cfg_c = SEUNetConfig(), SEUNetConfig(conv_stats=True)
+    model = SEUNet(cfg_d, generator=torch.Generator().manual_seed(1))
+    tree_cpu = model.params_tree()
+    tree_gpu = model.cuda().params_tree()
+    x = torch.randn((2, 64, 64, 64, 2), generator=torch.Generator().manual_seed(2))
+    with torch.inference_mode():
+        reset_launch_counts()
+        cs_gpu = se_unet_apply_fast(tree_gpu, x.cuda(), cfg=cfg_c)
+        torch.cuda.synchronize()
+        launched = dict(launch_counts)
+        cs_cpu = se_unet_apply_fast(tree_cpu, x, cfg=cfg_c)
+        d_gpu = se_unet_apply_fast(tree_gpu, x.cuda(), cfg=cfg_d)
+    if launched != CS_LAUNCHES:
+        raise AssertionError(f"f32 conv_stats apply_fast launched {launched}")
+    res = {"launches_f32": launched}
+    for name, a, b in (("gpu_vs_cpu", cs_gpu, cs_cpu), ("vs_default", cs_gpu, d_gpu)):
+        for head, ya, yb in zip(("en", "de"), a, b):
+            ya, yb = ya.cpu(), yb.cpu()
+            torch.testing.assert_close(ya, yb, rtol=1e-3, atol=1e-4)
+            res[f"f32_{name}_{head}_max_abs_diff"] = float((ya - yb).abs().max())
+    bf = torch.bfloat16
+    xb = torch.randn((BATCH, 128, 128, 128, 2), generator=torch.Generator().manual_seed(3))
+    with torch.inference_mode():
+        a = se_unet_apply_fast(tree_gpu, xb.cuda(), cfg=dataclasses.replace(cfg_c, compute_dtype=bf))
+        b = se_unet_apply_fast(tree_gpu, xb.cuda(), cfg=dataclasses.replace(cfg_d, compute_dtype=bf))
+    for head, ya, yb in zip(("en", "de"), a, b):
+        res[f"bf16_vs_default_{head}_max_abs_diff"] = float((ya - yb).abs().max())
+        res[f"bf16_vs_default_{head}_rel_l2"] = rel_l2(ya, yb)
+    emit({"conv_stats_parity": res})
+    for head in ("en", "de"):
+        if not res[f"bf16_vs_default_{head}_rel_l2"] <= 5e-2:
+            raise AssertionError(f"bf16 conv_stats {head} head differs from the default "
+                                 f"configuration: relative L2 {res[f'bf16_vs_default_{head}_rel_l2']}")
+    del a, b, xb, tree_gpu, model
+    torch.cuda.empty_cache()
+
+
+def conv_stats_path_phase(vol: np.ndarray, default_trits: np.ndarray):
+    """The main path's runner under `SEUNetConfig(conv_stats=True)`: one
+    warm-up volume, then CS_VOLUMES timed volumes; the launches must read
+    5/3/7/0 per tile batch; the trits are compared with the default
+    configuration's."""
+    cfg, model = get_model(seed=0, compute_dtype=torch.bfloat16)
+    cfg = dataclasses.replace(cfg, conv_stats=True)
+    runner = SlidingWindowRunner(model, cfg, cube=128, step=64, batch=BATCH)
+    kw = dict(h_thresh=0.5, l_thresh=0.35, hu_shift=-1024.0)
+    t0 = time.perf_counter()
+    runner.predict_trits(vol, **kw)
+    warm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    vol_s = []
+    for _ in range(CS_VOLUMES):
+        t0 = time.perf_counter()
+        trits = runner.predict_trits(vol, **kw)
+        torch.cuda.synchronize()
+        vol_s.append(time.perf_counter() - t0)
+    launches = dict(launch_counts)
+    n_tiles = 48
+    n_batches = n_tiles // BATCH * CS_VOLUMES
+    if launches != {k: v * n_batches for k, v in CS_LAUNCHES.items()}:
+        raise AssertionError(f"conv_stats path launches {launches}, want {CS_LAUNCHES} "
+                             f"per batch")
+    if trits.shape != SHAPE or trits.dtype != np.uint8 or trits.max() > 2:
+        raise AssertionError(f"bad trit field {trits.shape} {trits.dtype}")
+    prob = runner.predict_hu(vol[:128, :128, :128], hu_shift=-1024.0)
+    if not np.isfinite(prob).all() or prob.min() < 0 or prob.max() > 1:
+        raise AssertionError("non-finite or out-of-range probabilities")
+    emit({"conv_stats_path": {
+        "shape": list(SHAPE), "cube": 128, "step": 64, "batch": BATCH, "dtype": "bfloat16",
+        "tiles": n_tiles, "warmup_s": warm_s, "s_per_volume_runs": vol_s,
+        "s_per_volume": statistics.median(vol_s),
+        "tiles_per_s": n_tiles / statistics.median(vol_s),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches,
+        "trit_counts": np.bincount(trits.ravel(), minlength=3).tolist(),
+        "trits_equal_to_default_share": float((trits == default_trits).mean())}})
+    del runner, model
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -588,12 +814,18 @@ def main() -> int:
 
     summary = kernel_phase()
     summary.update(train_kernel_phase())
+    summary.update(conv_stats_kernel_phase())
     model_parity_phase()
+    conv_stats_parity_phase()
     vol, lumen = phantom(0)
-    launches = main_path_phase(vol)
+    main_launches, trits = main_path_phase(vol)
+    cs_launches = conv_stats_path_phase(vol, trits)
     train_parity_phase()
-    launches.update({k: v for k, v in train_path_phase(vol, lumen).items()
-                     if k not in EPILOGUE_TABLES})
+    train_launches = train_path_phase(vol, lumen)
+    # each kernel's launches from the path that runs it
+    launches = {**{k: main_launches[k] for k in EPILOGUE_TABLES},
+                **{k: train_launches[k] for k in ("phased_normalize", "max_pool_s2d_bwd")},
+                **{k: cs_launches[k] for k in ("phased_conv_stats", "dil2_conv_stats")}}
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][1],

@@ -24,7 +24,9 @@ Two forwards over one parameter tree (DHWIO weights, NDHWC tensors):
     composed into the prediction heads, and every s2d block's
     InstanceNorm + LeakyReLU + SE gates run as one fused epilogue
     kernel (ops/epilogue_s2d.py). Equal to `apply` up to float
-    reassociation.
+    reassociation. Under `SEUNetConfig(conv_stats=True)` the phased and
+    dil-2 blocks instead run a fused conv + statistics kernel
+    (ops/conv_stats.py) and normalize from its sums.
 
 `SEUNet` is the `nn.Module` holding the parameters under the reference
 state_dict names.
@@ -46,6 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from functools import partial
 from typing import Any
 
 import torch
@@ -54,10 +57,12 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import (
     conv3d,
+    dil2_conv_stats,
     gated_norm_block,
     instance_norm,
     leaky_relu,
     max_pool3d,
+    phased_conv_stats,
     phased_gated_block,
     upsample_trilinear,
 )
@@ -70,8 +75,11 @@ from ..ops.s2d import (
     dil2_group_weight,
     grouped_pointwise_multi_pre,
     grouped_pointwise_multi_weight,
+    instance_norm_from_stats,
     max_pool_s2d,
     phased_conv_weights,
+    se_gate_s2d_pre,
+    se_gate_weights,
     space_to_depth,
     upsample_to_s2d,
 )
@@ -90,6 +98,12 @@ class SEUNetConfig:
     # checkpoint each block in training: its activations are recomputed in
     # backward instead of kept
     remat: bool = False
+    # the fused conv + statistics forward of the JAX package's
+    # SEUNetConfig(use_pallas=True, use_pallas_epi=False) with PALLAS_DIL2=1:
+    # the five phased blocks run `phased_conv_stats`, the three dil-2 blocks
+    # `dil2_conv_stats` (ops/conv_stats.py), each followed by the InstanceNorm
+    # from the kernel's sums, LeakyReLU and the SE gates in plain torch
+    conv_stats: bool = False
 
 
 # (name, kind, (cin, cout)); kind: sse1/sse2 = SSEConv with 1/2 gates
@@ -355,6 +369,10 @@ def prepare_fast_params(params: Params, cfg: SEUNetConfig,
         fp[name] = {"w": conv3_weight_to_s2d(p[name]["conv"]["w"]),
                     "b": bias_to_s2d(p[name]["conv"]["b"]), "wse": wse(name, 1)}
     for name, gates in (("ec3", 1), ("ec5", 2), ("ec6", 2)):
+        if cfg.conv_stats:  # the kernel takes the reference kernel as it is
+            fp[name] = {"w": p[name]["conv"]["w"], "b": p[name]["conv"]["b"],
+                        "wse": wse(name, gates)}
+            continue
         ng = _DIL2_NG[name]
         fp[name] = {"wgroup": dil2_group_weight(p[name]["conv"]["w"], ng, dt),
                     "bg": p[name]["conv"]["b"].repeat(8), "ng": ng,
@@ -396,17 +414,35 @@ def _sse_block_s2d(pre: Params, x):
     return gated_norm_block(conv3d(x, pre["w"], pre["b"], padding=1), pre["wse"])
 
 
-def _sse_block_s2d_dil2(pre: Params, x):
+def _norm_gates(y, s1, s2, wse):
+    """The conv_stats blocks' tail (JAX se_unet.py:577-578, 777-778):
+    InstanceNorm from the conv's sums (rounded once), LeakyReLU, then the
+    SE gates as x * onehot(sigmoid(x @ kron(I8, w))), each rounded."""
+    e = leaky_relu(instance_norm_from_stats(y, s1, s2))
+    for w in wse:
+        e = se_gate_s2d_pre(e, *se_gate_weights(w[:, None], e.dtype))
+    return e
+
+
+def _sse_block_s2d_dil2(pre: Params, x, conv_stats: bool = False):
     """Dilation-2 SSEConv on an s2d tensor: the 8 sub-grid dil-1 convs as
-    one grouped conv (partial-dense lift), then the gathered epilogue."""
+    one grouped conv (partial-dense lift), then the gathered epilogue; or,
+    under `conv_stats`, the fused conv + statistics kernel."""
+    if conv_stats:
+        return _norm_gates(*dil2_conv_stats(x, pre["w"], pre["b"]), pre["wse"])
     y = conv3d(x, pre["wgroup"], pre["bg"], padding=1, groups=pre["ng"])
     return gated_norm_block(y, pre["wse"])
 
 
-def _sse_block_s2d_phased(pre: Params, x):
+def _sse_block_s2d_phased(pre: Params, x, conv_stats: bool = False):
     """SSEConv on an s2d tensor (or a list forming a plain concat) via
-    the phased conv, then the phased epilogue."""
+    the phased conv, then the phased epilogue; or, under `conv_stats`, the
+    fused conv + statistics kernel."""
     xs = list(x) if isinstance(x, (list, tuple)) else [x]
+    if conv_stats:
+        w_all = pre["w_all"]
+        y, s1, s2 = phased_conv_stats(xs, w_all.reshape(8, *w_all.shape[3:]), pre["b_all"])
+        return _norm_gates(y, s1, s2, pre["wse"])
     return phased_gated_block(xs, pre["w_all"], pre["b_all"], pre["wse"])
 
 
@@ -502,7 +538,14 @@ def apply_fast(params: Params, x: torch.Tensor, *,
     computed here when None (in the autograd graph, as training needs).
     `train`: DropLayer with draws from `generator` or `drop_draws`."""
     _sse_block_s2d = _remat(globals()["_sse_block_s2d"], cfg)
-    _sse_block_s2d_dil2 = _remat(globals()["_sse_block_s2d_dil2"], cfg)
+    _sse_block_s2d_dil2 = _remat(partial(globals()["_sse_block_s2d_dil2"],
+                                         conv_stats=cfg.conv_stats), cfg)
+    # the default phased block is a Function that saves its inputs only:
+    # checkpointing it would add a forward replay that nothing reads
+    _sse_block_s2d_phased = partial(globals()["_sse_block_s2d_phased"],
+                                    conv_stats=cfg.conv_stats)
+    if cfg.conv_stats:
+        _sse_block_s2d_phased = _remat(_sse_block_s2d_phased, cfg)
     _cat_block_s2d = _remat(globals()["_cat_block_s2d"], cfg)
     _sse_block = _remat(globals()["_sse_block"], cfg)
     _cat_block = _remat(globals()["_cat_block"], cfg)

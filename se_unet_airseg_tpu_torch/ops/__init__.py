@@ -1,7 +1,9 @@
 """Device ops of the port: plain PyTorch building blocks and the CUDA
-kernels' wrappers (fused epilogue, phased normalize, pool backward)."""
+kernels' wrappers (fused epilogue, phased normalize, pool backward, conv
++ statistics)."""
 
 from .conv import conv3d
+from .conv_stats import dil2_conv_stats, phased_conv_stats
 from .cuda_lib import build_kernels, launch_counts, reset_launch_counts
 from .epilogue_s2d import (
     gated_norm_block,
@@ -19,6 +21,7 @@ from .windowing import hu_dual_window
 __all__ = [
     "build_kernels",
     "conv3d",
+    "dil2_conv_stats",
     "gated_norm_block",
     "gathered_epilogue",
     "hu_dual_window",
@@ -29,6 +32,7 @@ __all__ = [
     "max_pool_s2d",
     "max_pool_s2d_bwd",
     "phased_epilogue",
+    "phased_conv_stats",
     "phased_gated_block",
     "phased_normalize",
     "reset_launch_counts",

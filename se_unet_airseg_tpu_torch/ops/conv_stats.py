@@ -1,0 +1,219 @@
+"""Fused s2d convolution + InstanceNorm statistics (`SEUNetConfig.conv_stats`).
+
+Counterpart of the JAX package's `phased_conv_stats` and `dil2_conv_stats`
+(`ops/pallas_s2d.py:1081` and `:404`). Both are one CUDA kernel here
+(`csrc/conv_stats.cu`, built and bound by `ops/cuda_lib.py`) that returns
+the conv output y together with its per-lane sums s1 = sum(y) and
+s2 = sum(y^2) over the voxels, f32, taken before y is rounded:
+
+  * `phased_conv_stats(xs, w_all, b_all)`: the pad-1 3^3 conv of the
+    full-resolution grid on its s2d fold, as the phase-stacked 2^3 block
+    conv (`s2d.phased_conv_weights`) with the 8 phase windows gathered;
+    `xs` is one tensor or two forming a plain channel concat, which the
+    kernel reads through two pointers;
+  * `dil2_conv_stats(x, w, b)`: the dilation-2 3^3 conv on the s2d fold,
+    8 independent dil-1 convs with the reference (3, 3, 3, Ci, Co) kernel.
+
+Each takes its plain PyTorch version (`*_plain`) for a CPU tensor only; on
+a CUDA tensor it launches the kernel or raises. The plain versions compute
+the conv in f32 from the operands (f64 for f64 inputs) and round y once,
+the kernel's rounding points. Each counts its launches in
+`cuda_lib.launch_counts`. Under autograd each is a
+`torch.autograd.Function` that saves its inputs only; its backward is
+autograd of the plain version (the custom vjps of pallas_s2d.py:1095-1101
+and :416-422).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .conv import conv3d
+from .cuda_lib import launch
+from .epilogue_s2d import _DTYPE_CODE, F32, _acc, _on_card
+from .s2d import from_polyphase, phase_windows, phased_conv_ext, to_polyphase
+
+
+def _with_sums(y: torch.Tensor, dtype: torch.dtype):
+    """(y rounded to dtype, s1, s2): the sums from y before rounding."""
+    return y.to(dtype), y.sum(dim=(1, 2, 3)), torch.square(y).sum(dim=(1, 2, 3))
+
+
+# ----------------------------------------------------------- plain versions
+
+
+def phased_conv_stats_plain(xs, w_all, b_all):
+    """Plain PyTorch version of `phased_conv_stats`: the 2^3 block conv
+    with padding 1 (list partial sums), the 8 phase windows of its
+    (n+1)^3 output gathered, the sums; conv and sums in f32."""
+    xs = list(xs) if isinstance(xs, (list, tuple)) else [xs]
+    dt = xs[0].dtype
+    acc = _acc(dt)
+    n = xs[0].shape[1]
+    w = w_all.reshape(2, 2, 2, *w_all.shape[1:]).to(acc)
+    y_ext = phased_conv_ext([t.to(acc) for t in xs], w, b_all.to(acc))
+    return _with_sums(torch.cat(phase_windows(y_ext, n), dim=-1), dt)
+
+
+def dil2_conv_stats_plain(x, w, b):
+    """Plain PyTorch version of `dil2_conv_stats`: to_polyphase, the dil-1
+    3^3 conv with padding 1, from_polyphase, the sums; in f32."""
+    acc = _acc(x.dtype)
+    y = conv3d(to_polyphase(x.to(acc)), w.to(acc), b.to(acc), padding=1)
+    return _with_sums(from_polyphase(y), x.dtype)
+
+
+# ------------------------------------------------------------- wrappers
+
+
+def _check_x(t, dtype, device, b, n, name):
+    if t.dim() != 5 or t.shape[:4] != (b, n, n, n) or t.dtype != dtype or t.device != device:
+        raise ValueError(f"{name} must be a {dtype} (B, n, n, n, C) tensor on {device} with "
+                         f"B={b}, n={n}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    vec = 16 // t.element_size()
+    if t.shape[-1] % vec:
+        raise ValueError(f"{name}'s lanes must be a multiple of {vec}, got {t.shape[-1]}")
+    t = t.contiguous()
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+    return t
+
+
+def _outputs(x, b, n, c8):
+    y = torch.empty((b, n, n, n, c8), dtype=x.dtype, device=x.device)
+    s1 = torch.zeros((b, c8), dtype=F32, device=x.device)
+    s2 = torch.zeros((b, c8), dtype=F32, device=x.device)
+    return y, s1, s2
+
+
+def _check_weight(w, dtype, device, shape, name):
+    if w.dtype != dtype or w.device != device or w.shape != shape:
+        raise ValueError(f"{name} must be a {dtype} {shape} tensor on {device}, got "
+                         f"{w.dtype} {tuple(w.shape)} on {w.device}")
+    w = w.contiguous()
+    if w.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+    return w
+
+
+def _phased_conv_stats_fwd(xs, w_all, b_all):
+    if not _on_card(xs[0]):
+        return phased_conv_stats_plain(xs, w_all, b_all)
+    dt = xs[0].dtype
+    if dt not in _DTYPE_CODE:
+        raise TypeError(f"the conv stats kernel takes float32 or bfloat16, got {dt}")
+    if len(xs) > 2:
+        raise ValueError(f"the phased kernel reads one or two inputs, got {len(xs)}")
+    b, n, dev = xs[0].shape[0], xs[0].shape[1], xs[0].device
+    xs = [_check_x(t, dt, dev, b, n, f"xs[{i}]") for i, t in enumerate(xs)]
+    cin, c8 = sum(t.shape[-1] for t in xs), w_all.shape[-1]
+    if c8 % 64:
+        raise ValueError(f"8Co must be a multiple of 64, got {c8}")
+    w_all = _check_weight(w_all, dt, dev, (8, cin, c8), "w_all")
+    b_all = b_all.to(device=dev, dtype=F32).contiguous()
+    if b_all.shape != (c8,):
+        raise ValueError(f"b_all must have shape ({c8},), got {tuple(b_all.shape)}")
+    y, s1, s2 = _outputs(xs[0], b, n, c8)
+    x1 = xs[1] if len(xs) == 2 else None
+    with torch.cuda.device(dev):
+        launch("airseg_phased_conv_stats", "phased_conv_stats", _DTYPE_CODE[dt],
+               xs[0].data_ptr(), xs[0].shape[-1], None if x1 is None else x1.data_ptr(),
+               0 if x1 is None else x1.shape[-1], w_all.data_ptr(), b_all.data_ptr(),
+               y.data_ptr(), s1.data_ptr(), s2.data_ptr(), b, n, c8 // 8,
+               torch.cuda.current_stream(dev).cuda_stream)
+    return y, s1, s2
+
+
+def _dil2_conv_stats_fwd(x, w, b):
+    if not _on_card(x):
+        return dil2_conv_stats_plain(x, w, b)
+    dt = x.dtype
+    if dt not in _DTYPE_CODE:
+        raise TypeError(f"the conv stats kernel takes float32 or bfloat16, got {dt}")
+    bsz, n, dev = x.shape[0], x.shape[1], x.device
+    x = _check_x(x, dt, dev, bsz, n, "x")
+    ci, co = x.shape[-1] // 8, w.shape[-1]
+    vec = 16 // x.element_size()
+    if x.shape[-1] % 8 or ci % vec or co % 8:
+        raise ValueError(f"Ci must be a multiple of {vec} and Co of 8, got Ci={ci}, Co={co}")
+    w = _check_weight(w, dt, dev, (3, 3, 3, ci, co), "w")
+    b = b.to(device=dev, dtype=F32).contiguous()
+    if b.shape != (co,):
+        raise ValueError(f"b must have shape ({co},), got {tuple(b.shape)}")
+    y, s1, s2 = _outputs(x, bsz, n, 8 * co)
+    with torch.cuda.device(dev):
+        launch("airseg_dil2_conv_stats", "dil2_conv_stats", _DTYPE_CODE[dt], x.data_ptr(), ci,
+               w.data_ptr(), b.data_ptr(), y.data_ptr(), s1.data_ptr(), s2.data_ptr(), bsz,
+               n, co, torch.cuda.current_stream(dev).cuda_stream)
+    return y, s1, s2
+
+
+# ---------------------------------------------------------- autograd
+
+
+def _plain_vjp(plain, inputs, cts, needs):
+    """Gradients of `plain(*inputs)` (a (y, s1, s2) function) against the
+    cotangents `cts`, for the inputs flagged in `needs`; None elsewhere."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(need) for t, need in zip(inputs, needs)]
+        outs = plain(*leaves)
+    wanted = [t for t, need in zip(leaves, needs) if need]
+    grads = iter(torch.autograd.grad(outs, wanted, cts) if wanted else ())
+    return [next(grads) if need else None for need in needs]
+
+
+class _PhasedConvStats(torch.autograd.Function):
+    """phased_conv_stats under autograd: saves (w_all, b_all, *xs);
+    backward = autograd of `phased_conv_stats_plain`."""
+
+    @staticmethod
+    def forward(ctx, w_all, b_all, *xs):
+        ctx.save_for_backward(w_all, b_all, *xs)
+        return _phased_conv_stats_fwd(list(xs), w_all, b_all)
+
+    @staticmethod
+    def backward(ctx, gy, g1, g2):
+        w_all, b_all, *xs = ctx.saved_tensors
+        grads = _plain_vjp(lambda w, b, *x: phased_conv_stats_plain(list(x), w, b),
+                           [w_all, b_all, *xs], (gy, g1, g2), ctx.needs_input_grad)
+        return tuple(grads)
+
+
+class _Dil2ConvStats(torch.autograd.Function):
+    """dil2_conv_stats under autograd: saves (x, w, b); backward =
+    autograd of `dil2_conv_stats_plain`."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w, b)
+        return _dil2_conv_stats_fwd(x, w, b)
+
+    @staticmethod
+    def backward(ctx, gy, g1, g2):
+        return tuple(_plain_vjp(dil2_conv_stats_plain, ctx.saved_tensors, (gy, g1, g2),
+                                ctx.needs_input_grad))
+
+
+def _wants_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def phased_conv_stats(xs, w_all, b_all):
+    """Phased s2d conv + statistics: xs (B, n, n, n, Cin), or a list of
+    two forming a plain concat of Cin lanes; w_all (8, Cin, 8Co), taps
+    s = sz*4 + sy*2 + sx (the 2^3 kernel of `s2d.phased_conv_weights`
+    flattened); b_all (8Co,). Returns y (B, n, n, n, 8Co) in x's dtype,
+    s1, s2 (B, 8Co) f32. Replaces phased_conv_stats."""
+    xs = list(xs) if isinstance(xs, (list, tuple)) else [xs]
+    if _wants_grad(*xs, w_all, b_all):
+        return _PhasedConvStats.apply(w_all, b_all, *xs)
+    return _phased_conv_stats_fwd(xs, w_all, b_all)
+
+
+def dil2_conv_stats(x, w, b):
+    """Dilation-2 s2d conv + statistics: x (B, n, n, n, 8Ci), w the
+    reference (3, 3, 3, Ci, Co) kernel, b (Co,). Returns y (B, n, n, n,
+    8Co) in x's dtype, s1, s2 (B, 8Co) f32. Replaces dil2_conv_stats."""
+    if _wants_grad(x, w, b):
+        return _Dil2ConvStats.apply(x, w, b)
+    return _dil2_conv_stats_fwd(x, w, b)

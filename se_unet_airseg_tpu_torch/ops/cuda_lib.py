@@ -22,10 +22,11 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = _CSRC / "build"
-_SOURCES = ("epilogue.cu", "pool_s2d.cu")
+_SOURCES = ("epilogue.cu", "pool_s2d.cu", "conv_stats.cu")
 
 launch_counts = {"gathered_epilogue": 0, "phased_epilogue": 0,
-                 "phased_normalize": 0, "max_pool_s2d_bwd": 0}
+                 "phased_normalize": 0, "max_pool_s2d_bwd": 0,
+                 "phased_conv_stats": 0, "dil2_conv_stats": 0}
 
 
 def reset_launch_counts() -> None:
@@ -42,6 +43,8 @@ _SIGNATURES = {
     "airseg_phased_normalize": [_I, _P, _LL, _LL, _LL, _LL, _P, _P, _P, _LL, _I,
                                 _I, _P],
     "airseg_max_pool_s2d_bwd": [_I, _P, _P, _P, _LL, _I, _I, _P],
+    "airseg_phased_conv_stats": [_I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
+    "airseg_dil2_conv_stats": [_I, _P, _I, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
 }
 
 

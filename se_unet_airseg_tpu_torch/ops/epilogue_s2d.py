@@ -47,7 +47,7 @@ import torch
 
 from .cuda_lib import launch
 from .norms import leaky_relu
-from .s2d import phase_windows, phased_conv_ext
+from .s2d import _affine8, phase_windows, phased_conv_ext
 
 F32 = torch.float32
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -207,14 +207,6 @@ def phased_normalize(y_ext, scale8, shift8):
 
 
 # --------------------------------------------------------- statistics
-
-
-def _affine8(s1, s2, nvox: int, eps: float):
-    """(B, C) sums -> the phase-tiled (B, 8C) scale8 and shift8."""
-    mean = s1 / nvox
-    var = torch.clamp(s2 / nvox - torch.square(mean), min=0.0)
-    scale = torch.rsqrt(var + eps)
-    return scale.repeat(1, 8).contiguous(), (mean * scale).repeat(1, 8).contiguous()
 
 
 def _gathered_affine(y, eps: float):

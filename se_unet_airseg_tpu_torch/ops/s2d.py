@@ -18,7 +18,12 @@ rewritten exactly on the folded tensors:
     straight into s2d layout;
   * `max_pool_s2d`: the 2x2x2 max pool as a maximum over the 8
     sub-positions; its backward (a CUDA kernel on the card) splits the
-    cotangent evenly among tied maxima.
+    cotangent evenly among tied maxima;
+  * `instance_norm_from_stats`: InstanceNorm of an s2d tensor from the
+    per-lane sums a fused conv emits (ops/conv_stats.py);
+  * `to_polyphase` / `from_polyphase`: sub-positions to batch entries and
+    back (the dil-2 conv as one dil-1 conv, the plain form of
+    `dil2_conv_stats`).
 
 Weights are DHWIO, as in the JAX package.
 """
@@ -142,19 +147,49 @@ def plain_to_interleaved_perm(channel_counts: tuple) -> tuple:
 def instance_norm_s2d(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """InstanceNorm over (D, H, W, 8 sub-positions) per original channel,
     one-pass f32 statistics (var = E[x^2] - E[x]^2, clamped at 0)."""
+    xf = x.to(torch.float32)
+    return instance_norm_from_stats(x, xf.sum(dim=(1, 2, 3)),
+                                    torch.square(xf).sum(dim=(1, 2, 3)), eps)
+
+
+def _affine8(s1, s2, nvox: int, eps: float):
+    """(B, C) sums of y and y^2 over `nvox` values -> the phase-tiled
+    (B, 8C) InstanceNorm scale8 and shift8 (var = E[y^2] - mean^2 clamped
+    at 0, scale = rsqrt(var + eps), shift = mean * scale)."""
+    mean = s1 / nvox
+    var = torch.clamp(s2 / nvox - torch.square(mean), min=0.0)
+    scale = torch.rsqrt(var + eps)
+    return scale.repeat(1, 8).contiguous(), (mean * scale).repeat(1, 8).contiguous()
+
+
+def instance_norm_from_stats(y: torch.Tensor, s1: torch.Tensor, s2: torch.Tensor,
+                             eps: float = 1e-5) -> torch.Tensor:
+    """InstanceNorm of an s2d tensor y (B, n, n, n, 8C) from its per-lane
+    sums s1, s2 (B, 8C) (the outputs of `phased_conv_stats` /
+    `dil2_conv_stats`): the 8 sub-positions' sums add per original
+    channel, then y * scale8 - shift8 in f32, rounded once to y's dtype."""
+    b, d, h, w, c8 = y.shape
+    c = c8 // 8
+    scale8, shift8 = _affine8(s1.reshape(b, 8, c).sum(1), s2.reshape(b, 8, c).sum(1),
+                              8 * d * h * w, eps)
+    bshape = (b, 1, 1, 1, c8)
+    return (y.to(scale8.dtype) * scale8.reshape(bshape) - shift8.reshape(bshape)).to(y.dtype)
+
+
+def to_polyphase(x: torch.Tensor) -> torch.Tensor:
+    """s2d (B, n, n, n, 8C) -> (8B, n, n, n, C): sub-positions become
+    batch entries (batch b, sub-position p -> entry 8b + p)."""
     b, d, h, w, c8 = x.shape
     c = c8 // 8
-    n = d * h * w * 8
-    xf = x.to(torch.float32)
-    s1 = xf.sum(dim=(1, 2, 3))
-    s2 = torch.square(xf).sum(dim=(1, 2, 3))
-    mean = s1.reshape(b, 8, c).sum(1) / n
-    ex2 = s2.reshape(b, 8, c).sum(1) / n
-    var = torch.clamp(ex2 - torch.square(mean), min=0.0)
-    scale = torch.rsqrt(var + eps)
-    scale8 = scale.repeat(1, 8)[:, None, None, None, :]
-    shift8 = (mean * scale).repeat(1, 8)[:, None, None, None, :]
-    return (xf * scale8 - shift8).to(x.dtype)
+    x = x.reshape(b, d, h, w, 8, c).permute(0, 4, 1, 2, 3, 5)
+    return x.reshape(b * 8, d, h, w, c)
+
+
+def from_polyphase(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of `to_polyphase`."""
+    b8, d, h, w, c = x.shape
+    x = x.reshape(b8 // 8, 8, d, h, w, c).permute(0, 2, 3, 4, 1, 5)
+    return x.reshape(b8 // 8, d, h, w, 8 * c)
 
 
 def dil2_dense_weight(w: torch.Tensor, dtype) -> torch.Tensor:

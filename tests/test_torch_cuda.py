@@ -14,6 +14,7 @@ import torch
 
 from se_unet_airseg_tpu_torch.models import SEUNet, SEUNetConfig, se_unet_apply_fast
 from se_unet_airseg_tpu_torch.models.se_unet import _leaves, _tree_map
+from se_unet_airseg_tpu_torch.ops import conv_stats as pcs
 from se_unet_airseg_tpu_torch.ops import epilogue_s2d as eps
 from se_unet_airseg_tpu_torch.ops import launch_counts, reset_launch_counts
 from se_unet_airseg_tpu_torch.ops import s2d as ps2d
@@ -99,7 +100,8 @@ def test_apply_fast_on_card_matches_cpu(dev):
         reset_launch_counts()
         got = se_unet_apply_fast(model.to(dev).params_tree(), x.to(dev), cfg=cfg)
     assert launch_counts == {"gathered_epilogue": 10, "phased_epilogue": 5,
-                             "phased_normalize": 0, "max_pool_s2d_bwd": 0}
+                             "phased_normalize": 0, "max_pool_s2d_bwd": 0,
+                             "phased_conv_stats": 0, "dil2_conv_stats": 0}
     for g, r in zip(got, ref):
         torch.testing.assert_close(g.cpu(), r, rtol=1e-3, atol=1e-4)
 
@@ -164,7 +166,7 @@ def test_train_grads_on_card_match_cpu(dev):
     (l_cpu, n_cpu, g_cpu), (l_gpu, n_gpu, g_gpu) = out["cpu"], out[str(dev)]
     assert not any(n_cpu.values())
     assert n_gpu == {"gathered_epilogue": 10, "phased_epilogue": 5, "phased_normalize": 5,
-                     "max_pool_s2d_bwd": 2}
+                     "max_pool_s2d_bwd": 2, "phased_conv_stats": 0, "dil2_conv_stats": 0}
     torch.testing.assert_close(l_gpu, l_cpu, rtol=1e-5, atol=1e-6)
     # each leaf also within 2e-2 of its own norm (LEAF_RTOL_PORT,
     # tests/test_torch_train.py)
@@ -172,3 +174,90 @@ def test_train_grads_on_card_match_cpu(dev):
     for a, b in zip(g_gpu, g_cpu):
         torch.testing.assert_close(a, b, rtol=5e-3, atol=5e-4)
         assert float((a - b).norm()) <= 2e-2 * float(b.norm()) + floor
+
+
+def _conv_stats_close(got, ref, mag):
+    """y within one ulp of the plain version in bf16, plus 2^-18 of the
+    sum of the |terms| `mag` (both round an f32 sum once, summed in
+    another order: near zero that order moves y by more than an ulp); at
+    1e-5 in f32. s1, s2 within 1e-4 of each channel's sum of |y| and of
+    y^2."""
+    (y, s1, s2), (ry, r1, r2) = got, ref
+    assert y.dtype == ry.dtype and s1.dtype == s2.dtype == torch.float32
+    if y.dtype == torch.bfloat16:
+        r = ry.float()
+        ulp = torch.ldexp(torch.ones_like(r), torch.frexp(r).exponent - 8)
+        d = (y.float() - r).abs()
+        assert bool((d <= ulp + 2.0 ** -18 * mag).all()), float(d.max())
+    else:
+        torch.testing.assert_close(y, ry, rtol=1e-5, atol=1e-5)
+    ryf = ry.float()
+    for s, rs, m in ((s1, r1, ryf.abs()), (s2, r2, ryf.square())):
+        lim = 1e-4 * m.sum(dim=(1, 2, 3)) + 1e-6
+        assert bool(((s - rs).abs() <= lim).all()), float((s - rs).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,cis,co", [(2, 8, (64,), 8), (1, 5, (64, 64), 16),
+                                        (2, 4, (128,), 64)])
+def test_phased_conv_stats_kernel_matches_plain(dev, dtype, b, n, cis, co):
+    """One input and a two-input plain concat; n = 5 is no multiple of 8."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    xs = [torch.randn((b, n, n, n, c), generator=g, device=dev).to(dtype) for c in cis]
+    w_all = (0.05 * torch.randn((8, sum(cis), 8 * co), generator=g, device=dev)).to(dtype)
+    b_all = 0.1 * torch.randn((8 * co,), generator=g, device=dev)
+    reset_launch_counts()
+    got = pcs.phased_conv_stats(xs, w_all, b_all)
+    torch.cuda.synchronize()
+    assert launch_counts["phased_conv_stats"] == 1
+    assert got[0].shape == (b, n, n, n, 8 * co)
+    mag = pcs.phased_conv_stats_plain([t.abs() for t in xs], w_all.abs(), 0 * b_all)[0]
+    _conv_stats_close(got, pcs.phased_conv_stats_plain(xs, w_all, b_all), mag.float())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,ci,co", [(2, 8, 16, 32), (1, 5, 8, 8), (3, 4, 32, 64)])
+def test_dil2_conv_stats_kernel_matches_plain(dev, dtype, b, n, ci, co):
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn((b, n, n, n, 8 * ci), generator=g, device=dev).to(dtype)
+    w = (0.1 * torch.randn((3, 3, 3, ci, co), generator=g, device=dev)).to(dtype)
+    bias = 0.1 * torch.randn((co,), generator=g, device=dev)
+    reset_launch_counts()
+    got = pcs.dil2_conv_stats(x, w, bias)
+    torch.cuda.synchronize()
+    assert launch_counts["dil2_conv_stats"] == 1
+    mag = pcs.dil2_conv_stats_plain(x.abs(), w.abs(), 0 * bias)[0]
+    _conv_stats_close(got, pcs.dil2_conv_stats_plain(x, w, bias), mag.float())
+
+
+def test_conv_stats_wrappers_raise_on_what_the_kernel_does_not_take(dev):
+    x = torch.randn((1, 4, 4, 4, 64), device=dev)
+    w_all = torch.randn((8, 64, 64), device=dev)
+    b_all = torch.zeros(64, device=dev)
+    with pytest.raises(TypeError):
+        pcs.phased_conv_stats(x.half(), w_all.half(), b_all)
+    with pytest.raises(ValueError):
+        pcs.phased_conv_stats(x, w_all.to(torch.bfloat16), b_all)
+    with pytest.raises(ValueError):
+        pcs.phased_conv_stats([x, x, x], torch.randn((8, 192, 64), device=dev), b_all)
+    with pytest.raises(ValueError):  # Co = 4
+        pcs.dil2_conv_stats(x, torch.randn((3, 3, 3, 8, 4), device=dev),
+                            torch.zeros(4, device=dev))
+
+
+def test_apply_fast_conv_stats_on_card_matches_cpu(dev):
+    """The conv_stats forward in float32 on the card (kernels) against
+    the CPU (plain versions), with its launches: 5 phased and 3 dil-2
+    conv stats, 7 gathered epilogues, no phased epilogue."""
+    cfg = SEUNetConfig(conv_stats=True)
+    model = SEUNet(cfg, generator=torch.Generator().manual_seed(0))
+    x = torch.randn((2, 32, 32, 32, 2), generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        ref = se_unet_apply_fast(model.params_tree(), x, cfg=cfg)
+        reset_launch_counts()
+        got = se_unet_apply_fast(model.to(dev).params_tree(), x.to(dev), cfg=cfg)
+    assert launch_counts == {"gathered_epilogue": 7, "phased_epilogue": 0,
+                             "phased_normalize": 0, "max_pool_s2d_bwd": 0,
+                             "phased_conv_stats": 5, "dil2_conv_stats": 3}
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.cpu(), r, rtol=1e-3, atol=1e-4)
