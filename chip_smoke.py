@@ -7,9 +7,8 @@ Needs one CUDA card and nvcc; exits non-zero without them. Phases:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off for
    the float32 phases;
-2. build: nvcc builds the kernels from csrc/epilogue.cu and
-   csrc/pool_s2d.cu, one nvcc per source, started together, into one
-   library;
+2. build: nvcc builds the kernels from the four sources under csrc/,
+   one nvcc per source, started together, into one library;
 3. kernels: the two epilogue kernels against their plain PyTorch
    versions at the 15 call shapes of the inference path (batch 8, bf16),
    with their time (CUDA events, median of 20 launches), the plain
@@ -57,7 +56,27 @@ Needs one CUDA card and nvcc; exits non-zero without them. Phases:
    warm-up volume and CS_VOLUMES timed volumes; the launches must read 5
    `phased_conv_stats`, 3 `dil2_conv_stats`, 7 gathered and 0 phased
    epilogues per tile batch;
-12. a `kernels` JSON line, then the card line, then the last line
+12. conv_epi kernels: `dil2_dense_conv_stats` at the 3 dil-2 and
+   `phased_conv_ungathered` at the 5 phased call shapes of the
+   conv-to-epilogue configuration (batch 8, bf16; the dense form on the
+   block-diagonal lift the model passes) against their plain versions,
+   with the checks of phase 9; `library_ms` is cuDNN's bf16 conv of the
+   same function (the dense block-diagonal conv; the default path's
+   per-input phased conv); the dense lines also time K9 on the same
+   block;
+13. conv_epi parity: as phase 10, under `SEUNetConfig(conv_epi=True)`;
+14. conv_epi path: the runner of phase 6 under `conv_epi`, one warm-up
+   volume and CE_VOLUMES timed volumes; the launches must read 3
+   `dil2_dense_conv_stats`, 5 `phased_conv_ungathered`, 10 gathered and
+   5 phased epilogues per tile batch, and no K8/K9;
+15. instance_norm_leaky: its forward and backward kernels against their
+   plain versions at (1, 64^3, 256) and at the s2d shape of ec3's output,
+   (8, 64^3 * 8, 32), bf16, within one bf16 ulp; with ms, the plain
+   version's ms, the memory bound and, as `library_ms`, F.instance_norm
+   then F.leaky_relu (two calls; for the backward, autograd through
+   them). It has no model path: its launches are read from one forward
+   and backward of its s2d entry point under autograd;
+16. a `kernels` JSON line, then the card line, then the last line
    `{"ok": true, "device": {...}}`.
 
 Any failure raises and exits non-zero.
@@ -75,6 +94,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from se_unet_airseg_tpu_torch.infer import SlidingWindowRunner
 from se_unet_airseg_tpu_torch.models import (
@@ -88,7 +108,7 @@ from se_unet_airseg_tpu_torch.models.se_unet import _DIL2_NG, _leaves, _tree_map
 from se_unet_airseg_tpu_torch.ops import build_kernels, conv3d, hu_dual_window, launch_counts
 from se_unet_airseg_tpu_torch.ops import conv_stats as pcs
 from se_unet_airseg_tpu_torch.ops import epilogue_s2d as eps
-from se_unet_airseg_tpu_torch.ops import reset_launch_counts
+from se_unet_airseg_tpu_torch.ops import norm_leaky, reset_launch_counts
 from se_unet_airseg_tpu_torch.ops import s2d as ps2d
 from se_unet_airseg_tpu_torch.train import (
     create_train_state,
@@ -104,6 +124,7 @@ BATCH = 8
 SHAPE = (320, 256, 320)
 TIMED_VOLUMES = 5
 CS_VOLUMES = 3
+CE_VOLUMES = 3
 TRAIN_STEPS = 10
 # (block, s2d grid n, 8C, gates) of every epilogue call per tile batch of
 # 128^3 tiles (n = 64 at the full-resolution level, 32 at the 1/2 level)
@@ -121,7 +142,15 @@ POOLS = [("e1", 64, 256), ("e3s", 32, 512)]
 CS_PHASED = [("ec4", 32, (256,), 32), ("dc3", 32, (512, 512), 64), ("dc4", 32, (512,), 32),
              ("dc5", 64, (256, 256), 32), ("dc6", 64, (256,), 16)]
 CS_DIL2 = [("ec3", 64, 16, 32), ("ec5", 32, 32, 32), ("ec6", 32, 32, 64)]
+# conv_epi calls per tile batch: the same blocks as (block, n, input lanes
+# of each input, 8Co) and (block, n, C8, C8o)
+CE_PHASED = [(blk, n, cis, 8 * co) for blk, n, cis, co in CS_PHASED]
+CE_DIL2 = [(blk, n, 8 * ci, 8 * co) for blk, n, ci, co in CS_DIL2]
+# instance_norm_leaky: (name, shape) of the shape its docstring names and
+# the s2d form of ec3's output
+NL_SHAPES = [("docstring", (1, 64 ** 3, 256)), ("ec3_s2d", (BATCH, 64 ** 3 * 8, 32))]
 CS_SRC = "se_unet_airseg_tpu_torch/csrc/conv_stats.cu"
+NL_SRC = "se_unet_airseg_tpu_torch/csrc/norm_leaky.cu"
 EPI_SRC = "se_unet_airseg_tpu_torch/csrc/epilogue.cu"
 KERNELS = {  # name: (the Pallas functions it replaces, source)
     "gathered_epilogue": ("se_unet_airseg_tpu/ops/pallas_s2d.py:1156; "
@@ -133,6 +162,11 @@ KERNELS = {  # name: (the Pallas functions it replaces, source)
                          "se_unet_airseg_tpu_torch/csrc/pool_s2d.cu"),
     "phased_conv_stats": ("se_unet_airseg_tpu/ops/pallas_s2d.py:1081", CS_SRC),
     "dil2_conv_stats": ("se_unet_airseg_tpu/ops/pallas_s2d.py:404", CS_SRC),
+    "dil2_dense_conv_stats": ("se_unet_airseg_tpu/ops/pallas_s2d.py:1714", CS_SRC),
+    "phased_conv_ungathered": ("se_unet_airseg_tpu/ops/pallas_s2d.py:2179; "
+                               "se_unet_airseg_tpu/ops/pallas_s2d.py:2131", CS_SRC),
+    "instance_norm_leaky_fwd": ("se_unet_airseg_tpu/ops/pallas_norm.py:132", NL_SRC),
+    "instance_norm_leaky_bwd": ("se_unet_airseg_tpu/ops/pallas_norm.py:168", NL_SRC),
 }
 EPILOGUE_TABLES = {"gathered_epilogue": GATHERED, "phased_epilogue": PHASED}
 
@@ -145,6 +179,8 @@ def counts(**nonzero) -> dict:
 STEP_LAUNCHES = counts(gathered_epilogue=10, phased_epilogue=5, phased_normalize=5,
                        max_pool_s2d_bwd=2)
 CS_LAUNCHES = counts(gathered_epilogue=7, phased_conv_stats=5, dil2_conv_stats=3)
+CE_LAUNCHES = counts(gathered_epilogue=10, phased_epilogue=5, dil2_dense_conv_stats=3,
+                     phased_conv_ungathered=5)
 
 
 def emit(obj) -> None:
@@ -472,13 +508,17 @@ def cs_bound(flops: float, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def conv_stats_call(name, block, shape, kernel, plain, mag, library, flops, nbytes, agg):
-    """Hold one conv_stats call against its plain version, time it, and
-    emit its line: y within one bf16 ulp plus 2^-18 of the sum of |terms|
-    `mag` (the two sum in f32 in another order, which near zero moves y
-    by more than an ulp); s1, s2 within 1e-4 of each channel's sum of |y|
-    and of y^2."""
-    (y, s1, s2), (ry, r1, r2) = kernel(), plain()
+def conv_stats_call(name, block, shape, kernel, plain, mag, library, flops, nbytes, agg,
+                    library_label="cuDNN bf16 conv only: no phase gather, no sums", **extra):
+    """Hold one conv call against its plain version, time it, and emit its
+    line: y within one bf16 ulp plus 2^-18 of the sum of |terms| `mag`
+    (the two sum in f32 in another order, which near zero moves y by more
+    than an ulp); s1, s2, where the kernel returns them, within 1e-4 of
+    each channel's sum of |y| and of y^2. `extra`: more timed calls on the
+    same inputs, name -> fn, reported as name_ms."""
+    got, ref = kernel(), plain()
+    got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+    y, ry = got[0], ref[0]
     m = mag().float()
     torch.cuda.synchronize()
     d = (y.float() - ry.float()).abs()
@@ -486,7 +526,7 @@ def conv_stats_call(name, block, shape, kernel, plain, mag, library, flops, nbyt
     ryf = ry.float()
     s_err = 0.0
     s_ok = True
-    for s, rs, mags in ((s1, r1, ryf.abs()), (s2, r2, ryf.square())):
+    for s, rs, mags in zip(got[1:], ref[1:], (ryf.abs(), ryf.square())):
         lim = 1e-4 * mags.sum(dim=(1, 2, 3))
         s_ok &= bool(((s - rs).abs() <= lim).all())
         s_err = max(s_err, float(((s - rs).abs() / lim).max()))
@@ -496,15 +536,16 @@ def conv_stats_call(name, block, shape, kernel, plain, mag, library, flops, nbyt
                              f"(max |dy| {float(d.max())}, sums at {s_err} of the limit)")
     frac = float((d > 0).float().mean())
     err = float(d.max())
-    del y, s1, s2, ry, r1, r2, d
+    has_sums = len(got) > 1
+    del got, ref, y, ry, d
     ms = cuda_ms(kernel)
     b_ms, b_by = cs_bound(flops, nbytes)
     line = {"kernel": name, "block": block, "shape": shape, "ms": ms, "bound_ms": b_ms,
             "bound_by": b_by, "x_bound": ms / b_ms, "tflops": flops / ms / 1e9,
             "plain_ms": cuda_ms(plain), "library_ms": cuda_ms(library),
-            "library": "cuDNN bf16 conv only: no phase gather, no sums",
-            "max_abs_diff": err, "frac_elements_differing": frac,
-            "sums_err_of_limit": s_err}
+            "library": library_label, "max_abs_diff": err, "frac_elements_differing": frac,
+            **({"sums_err_of_limit": s_err} if has_sums else {}),
+            **{f"{k}_ms": cuda_ms(fn) for k, fn in extra.items()}}
     emit(line)
     add_call(agg, line)
 
@@ -566,12 +607,12 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def conv_stats_parity_phase():
-    """apply_fast under conv_stats: f32 on the card (kernels) against
-    the CPU (plain versions) and against the default configuration on the
-    card, 64^3, batch 2; bf16 against the default configuration on one
-    128^3 batch of 8."""
-    cfg_d, cfg_c = SEUNetConfig(), SEUNetConfig(conv_stats=True)
+def config_parity_phase(name: str, cfg_c: SEUNetConfig, want: dict):
+    """apply_fast under the configuration `cfg_c`: f32 on the card
+    (kernels) against the CPU (plain versions) and against the default
+    configuration on the card, 64^3, batch 2, with the launches `want`;
+    bf16 against the default configuration on one 128^3 batch of 8."""
+    cfg_d = SEUNetConfig()
     model = SEUNet(cfg_d, generator=torch.Generator().manual_seed(1))
     tree_cpu = model.params_tree()
     tree_gpu = model.cuda().params_tree()
@@ -583,14 +624,14 @@ def conv_stats_parity_phase():
         launched = dict(launch_counts)
         cs_cpu = se_unet_apply_fast(tree_cpu, x, cfg=cfg_c)
         d_gpu = se_unet_apply_fast(tree_gpu, x.cuda(), cfg=cfg_d)
-    if launched != CS_LAUNCHES:
-        raise AssertionError(f"f32 conv_stats apply_fast launched {launched}")
+    if launched != want:
+        raise AssertionError(f"f32 {name} apply_fast launched {launched}")
     res = {"launches_f32": launched}
-    for name, a, b in (("gpu_vs_cpu", cs_gpu, cs_cpu), ("vs_default", cs_gpu, d_gpu)):
+    for cmp, a, b in (("gpu_vs_cpu", cs_gpu, cs_cpu), ("vs_default", cs_gpu, d_gpu)):
         for head, ya, yb in zip(("en", "de"), a, b):
             ya, yb = ya.cpu(), yb.cpu()
             torch.testing.assert_close(ya, yb, rtol=1e-3, atol=1e-4)
-            res[f"f32_{name}_{head}_max_abs_diff"] = float((ya - yb).abs().max())
+            res[f"f32_{cmp}_{head}_max_abs_diff"] = float((ya - yb).abs().max())
     bf = torch.bfloat16
     xb = torch.randn((BATCH, 128, 128, 128, 2), generator=torch.Generator().manual_seed(3))
     with torch.inference_mode():
@@ -599,22 +640,23 @@ def conv_stats_parity_phase():
     for head, ya, yb in zip(("en", "de"), a, b):
         res[f"bf16_vs_default_{head}_max_abs_diff"] = float((ya - yb).abs().max())
         res[f"bf16_vs_default_{head}_rel_l2"] = rel_l2(ya, yb)
-    emit({"conv_stats_parity": res})
+    emit({f"{name}_parity": res})
     for head in ("en", "de"):
         if not res[f"bf16_vs_default_{head}_rel_l2"] <= 5e-2:
-            raise AssertionError(f"bf16 conv_stats {head} head differs from the default "
+            raise AssertionError(f"bf16 {name} {head} head differs from the default "
                                  f"configuration: relative L2 {res[f'bf16_vs_default_{head}_rel_l2']}")
     del a, b, xb, tree_gpu, model
     torch.cuda.empty_cache()
 
 
-def conv_stats_path_phase(vol: np.ndarray, default_trits: np.ndarray):
-    """The main path's runner under `SEUNetConfig(conv_stats=True)`: one
-    warm-up volume, then CS_VOLUMES timed volumes; the launches must read
-    5/3/7/0 per tile batch; the trits are compared with the default
+def config_path_phase(name: str, vol: np.ndarray, default_trits: np.ndarray, volumes: int,
+                      want: dict, **cfg_kw):
+    """The main path's runner under `SEUNetConfig(**cfg_kw)`: one warm-up
+    volume, then `volumes` timed volumes; the launches must read `want`
+    per tile batch; the trits are compared with the default
     configuration's."""
     cfg, model = get_model(seed=0, compute_dtype=torch.bfloat16)
-    cfg = dataclasses.replace(cfg, conv_stats=True)
+    cfg = dataclasses.replace(cfg, **cfg_kw)
     runner = SlidingWindowRunner(model, cfg, cube=128, step=64, batch=BATCH)
     kw = dict(h_thresh=0.5, l_thresh=0.35, hu_shift=-1024.0)
     t0 = time.perf_counter()
@@ -624,23 +666,22 @@ def conv_stats_path_phase(vol: np.ndarray, default_trits: np.ndarray):
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     vol_s = []
-    for _ in range(CS_VOLUMES):
+    for _ in range(volumes):
         t0 = time.perf_counter()
         trits = runner.predict_trits(vol, **kw)
         torch.cuda.synchronize()
         vol_s.append(time.perf_counter() - t0)
     launches = dict(launch_counts)
     n_tiles = 48
-    n_batches = n_tiles // BATCH * CS_VOLUMES
-    if launches != {k: v * n_batches for k, v in CS_LAUNCHES.items()}:
-        raise AssertionError(f"conv_stats path launches {launches}, want {CS_LAUNCHES} "
-                             f"per batch")
+    n_batches = n_tiles // BATCH * volumes
+    if launches != {k: v * n_batches for k, v in want.items()}:
+        raise AssertionError(f"{name} path launches {launches}, want {want} per batch")
     if trits.shape != SHAPE or trits.dtype != np.uint8 or trits.max() > 2:
         raise AssertionError(f"bad trit field {trits.shape} {trits.dtype}")
     prob = runner.predict_hu(vol[:128, :128, :128], hu_shift=-1024.0)
     if not np.isfinite(prob).all() or prob.min() < 0 or prob.max() > 1:
         raise AssertionError("non-finite or out-of-range probabilities")
-    emit({"conv_stats_path": {
+    emit({f"{name}_path": {
         "shape": list(SHAPE), "cube": 128, "step": 64, "batch": BATCH, "dtype": "bfloat16",
         "tiles": n_tiles, "warmup_s": warm_s, "s_per_volume_runs": vol_s,
         "s_per_volume": statistics.median(vol_s),
@@ -652,6 +693,126 @@ def conv_stats_path_phase(vol: np.ndarray, default_trits: np.ndarray):
     del runner, model
     torch.cuda.empty_cache()
     return launches
+
+
+def conv_epi_kernel_phase():
+    """dil2_dense_conv_stats at its 3 and phased_conv_ungathered at its 5
+    call shapes of the conv_epi configuration (batch 8, bf16, seeded
+    inputs), each against its plain version with the checks of the
+    conv_stats phase. The dense form gets the block-diagonal lift of a
+    random dil-2 kernel, as the model gives it, and pays its 8x zero
+    FLOPs; its library call is cuDNN's bf16 conv with the same weight, and
+    K9's time on the same block is reported beside it. The ungathered
+    conv's library call is the default path's cuDNN phased conv."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    bf = torch.bfloat16
+    summary = {"dil2_dense_conv_stats": new_summary(), "phased_conv_ungathered": new_summary()}
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+
+    for block, n, c8, c8o in CE_DIL2:
+        x = randn(BATCH, n, n, n, c8).to(bf)
+        vox = BATCH * n ** 3
+        w = randn(3, 3, 3, c8 // 8, c8o // 8, scale=1 / math.sqrt(27 * c8 // 8)).to(bf)
+        b = randn(c8o // 8, scale=0.1)
+        wd = ps2d.dil2_dense_weight(w, bf)
+        bg = b.repeat(8)
+        conv_stats_call(
+            "dil2_dense_conv_stats", block, [BATCH, n, n, n, c8, c8o],
+            lambda: pcs.dil2_dense_conv_stats(x, wd, bg),
+            lambda: pcs.dil2_dense_conv_stats_plain(x, wd, bg),
+            lambda: pcs.dil2_dense_conv_stats_plain(x.abs(), wd.abs(), 0 * bg)[0],
+            lambda: conv3d(x, wd, padding=1),
+            2 * vox * 27 * c8 * c8o,
+            2 * (vox * c8 + vox * c8o + wd.numel()) + 4 * (c8o + 2 * BATCH * c8o),
+            summary["dil2_dense_conv_stats"],
+            library_label="cuDNN bf16 dense conv with the block-diagonal weight, no sums",
+            k9_same_block=lambda: pcs.dil2_conv_stats(x, w, b))
+        del x, w, b, wd, bg
+        torch.cuda.empty_cache()
+    for block, n, cis, c8o in CE_PHASED:
+        xs = [randn(BATCH, n, n, n, c).to(bf) for c in cis]
+        cin, m = sum(cis), n + 1
+        w = randn(2, 2, 2, cin, c8o, scale=1 / math.sqrt(8 * cin)).to(bf)
+        b = randn(c8o, scale=0.1)
+        conv_stats_call(
+            "phased_conv_ungathered", block, [BATCH, n, n, n, list(cis), c8o],
+            lambda: pcs.phased_conv_ungathered(xs, w, b),
+            lambda: pcs.phased_conv_ungathered_plain(xs, w, b),
+            lambda: pcs.phased_conv_ungathered_plain([t.abs() for t in xs], w.abs()),
+            lambda: ps2d.phased_conv_ext(xs, w, b.to(bf)),
+            2 * BATCH * m ** 3 * 8 * cin * c8o,
+            2 * (BATCH * n ** 3 * cin + BATCH * m ** 3 * c8o + w.numel()) + 4 * c8o,
+            summary["phased_conv_ungathered"],
+            library_label="cuDNN bf16 phased conv of the default path (per-input partial sums)")
+        del xs, w, b
+        torch.cuda.empty_cache()
+    return summary
+
+
+def norm_leaky_phase():
+    """instance_norm_leaky's forward and backward kernels at NL_SHAPES,
+    bf16, against their plain versions (within one bf16 ulp: the f32
+    statistics sum in another order), timed beside the memory bound and
+    F.instance_norm + F.leaky_relu; then the launches of one forward and
+    backward of the s2d entry point under autograd."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    bf = torch.bfloat16
+    summary = {"instance_norm_leaky_fwd": new_summary(),
+               "instance_norm_leaky_bwd": new_summary()}
+    for label, shape in NL_SHAPES:
+        x = (1.5 * torch.randn(shape, generator=gen, device="cuda") + 0.3).to(bf)
+        g = torch.randn(shape, generator=gen, device="cuda").to(bf)
+        y, rstd = norm_leaky._norm_leaky_fwd(x)
+        calls = {
+            "instance_norm_leaky_fwd": (lambda: norm_leaky._norm_leaky_fwd(x)[0],
+                                        lambda: norm_leaky.instance_norm_leaky_plain(x)[0], 2),
+            "instance_norm_leaky_bwd": (lambda: norm_leaky._norm_leaky_bwd(g, y, rstd),
+                                        lambda: norm_leaky.instance_norm_leaky_bwd_plain(
+                                            g, y, rstd), 3),
+        }
+        xr = x.detach().requires_grad_(True)
+        lib_y = F.leaky_relu(F.instance_norm(xr.transpose(1, 2)), 0.01)
+        library = {"instance_norm_leaky_fwd": lambda: F.leaky_relu(
+                       F.instance_norm(x.transpose(1, 2)), 0.01),
+                   "instance_norm_leaky_bwd": lambda: torch.autograd.grad(
+                       lib_y, xr, g.transpose(1, 2), retain_graph=True)[0]}
+        for name, (kernel, plain, moved) in calls.items():
+            got, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            d = (got.float() - ref.float()).abs()
+            if not bool((d <= bf16_ulp(ref) + 1e-6).all()) or not torch.isfinite(got.float()).all():
+                raise AssertionError(f"{name} {label}: kernel disagrees with its plain version "
+                                     f"(max |d| {float(d.max())})")
+            b_ms, b_by = least_ms(moved * x.numel() * x.element_size(), 8 * x.numel())
+            line = {"kernel": name, "block": label, "shape": list(shape),
+                    "ms": cuda_ms(kernel), "bound_ms": b_ms, "bound_by": b_by,
+                    "plain_ms": cuda_ms(plain), "library_ms": cuda_ms(library[name]),
+                    "library": "F.instance_norm then F.leaky_relu, two calls on the (B, C, S) "
+                               "view" + ("; autograd through them" if "bwd" in name else ""),
+                    "max_abs_diff": float(d.max()),
+                    "frac_elements_differing": float((d > 0).float().mean())}
+            line["x_bound"] = line["ms"] / b_ms
+            emit(line)
+            add_call(summary[name], line)
+            del got, ref, d
+        del x, g, y, rstd, xr, lib_y
+        torch.cuda.empty_cache()
+    # the entry point: the s2d wrapper under autograd at ec3's output
+    x = torch.randn((BATCH, 64, 64, 64, 256), generator=gen, device="cuda").to(bf)
+    x.requires_grad_(True)
+    reset_launch_counts()
+    norm_leaky.instance_norm_leaky_s2d(x).float().square().sum().backward()
+    torch.cuda.synchronize()
+    launches = dict(launch_counts)
+    if launches != counts(instance_norm_leaky_fwd=1, instance_norm_leaky_bwd=1):
+        raise AssertionError(f"instance_norm_leaky_s2d forward + backward launched {launches}")
+    if not torch.isfinite(x.grad.float()).all():
+        raise AssertionError("non-finite instance_norm_leaky_s2d gradient")
+    del x
+    torch.cuda.empty_cache()
+    return summary, launches
 
 
 def train_parity_phase():
@@ -815,17 +976,27 @@ def main() -> int:
     summary = kernel_phase()
     summary.update(train_kernel_phase())
     summary.update(conv_stats_kernel_phase())
+    summary.update(conv_epi_kernel_phase())
+    nl_summary, nl_launches = norm_leaky_phase()
+    summary.update(nl_summary)
     model_parity_phase()
-    conv_stats_parity_phase()
+    config_parity_phase("conv_stats", SEUNetConfig(conv_stats=True), CS_LAUNCHES)
+    config_parity_phase("conv_epi", SEUNetConfig(conv_epi=True), CE_LAUNCHES)
     vol, lumen = phantom(0)
     main_launches, trits = main_path_phase(vol)
-    cs_launches = conv_stats_path_phase(vol, trits)
+    cs_launches = config_path_phase("conv_stats", vol, trits, CS_VOLUMES, CS_LAUNCHES,
+                                    conv_stats=True)
+    ce_launches = config_path_phase("conv_epi", vol, trits, CE_VOLUMES, CE_LAUNCHES,
+                                    conv_epi=True)
     train_parity_phase()
     train_launches = train_path_phase(vol, lumen)
     # each kernel's launches from the path that runs it
     launches = {**{k: main_launches[k] for k in EPILOGUE_TABLES},
                 **{k: train_launches[k] for k in ("phased_normalize", "max_pool_s2d_bwd")},
-                **{k: cs_launches[k] for k in ("phased_conv_stats", "dil2_conv_stats")}}
+                **{k: cs_launches[k] for k in ("phased_conv_stats", "dil2_conv_stats")},
+                **{k: ce_launches[k] for k in ("dil2_dense_conv_stats", "phased_conv_ungathered")},
+                **{k: nl_launches[k] for k in ("instance_norm_leaky_fwd",
+                                                "instance_norm_leaky_bwd")}}
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][1],

@@ -1,5 +1,5 @@
-// Convolution + InstanceNorm statistics of the s2d SE-UNet blocks, for
-// Hopper (sm_90a).
+// Convolution + InstanceNorm statistics of the s2d SE-UNet blocks, and the
+// phased conv to its ungathered output, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of se_unet_airseg_tpu/ops/pallas_s2d.py:
 //   phased conv stats: phased_conv_stats (_pallas_forward, _phased_kernel):
@@ -10,18 +10,27 @@
 //   dil-2 conv stats: dil2_conv_stats (_pallas_dil2_forward, _dil2_kernel):
 //     the dilation-2 3^3 conv on the s2d fold as 8 independent dil-1 convs,
 //     one per sub-position p, all with the same (27*Ci, Co) kernel;
-//     y[..., p*Co + o] = bias + sum_t sum_c x[voxel + t - 1, p*Ci + c] * w[t, c, o].
-// Both also emit s1, s2 (B, 8Co) f32: the sums of y and y^2 over the voxels,
-// taken from the f32 accumulator after the bias and before y is rounded to
-// its storage type, as the Pallas kernels do.
+//     y[..., p*Co + o] = bias + sum_t sum_c x[voxel + t - 1, p*Ci + c] * w[t, c, o];
+//   dense dil-2 conv stats: dil2_conv_stats_bm (_dil2_kernel_bm): the dense
+//     pad-1 3^3 conv of the s2d tensor with any (27*C8, C8o) kernel (the
+//     model passes the block-diagonal lift of the dil-2 kernel and pays its
+//     8x structural-zero FLOPs, as the TPU kernel does), with the sums;
+//   ungathered phased conv: phased_conv_ext_bm (_pconv_kernel_bm) and its
+//     k-grid form (_pconv_kgrid_kernel_bm): the 2^3 block conv to the
+//     (n+1)^3 output grid, y_ext[v'] = bias + sum_s sum_c x[v' + s - 1, c] *
+//     w_all[s, c, :], the same offsets for every output column, no sums.
+// The statistics forms also emit s1, s2 (B, 8Co) f32: the sums of y and y^2
+// over the voxels, taken from the f32 accumulator after the bias and before
+// y is rounded to its storage type, as the Pallas kernels do.
 //
-// One kernel serves both: an implicit GEMM per group g (phase q or
-// sub-position p), M = the n^3 voxels of one batch entry, N = Co,
-// K = taps x input lanes. A block computes 128 voxels x BN channels of one
-// group; the A operand is gathered from x by tap offset with zero fill at
-// the volume's edge (no padded copy of x), in 16-byte cp.async vectors
-// through a 3-stage shared-memory ring. The phased form may read two input
-// tensors (a plain channel concat) through two base pointers.
+// One kernel serves all four: an implicit GEMM per group g (phase q or
+// sub-position p; the dense and ungathered forms have one group of all
+// output columns), M = the output voxels of one batch entry, N = the
+// group's columns, K = taps x input lanes. A block computes 128 voxels x BN
+// columns of one group; the A operand is gathered from x by tap offset with
+// zero fill at the volume's edge (no padded copy of x), in 16-byte cp.async
+// vectors through a 3-stage shared-memory ring. The phased forms may read
+// two input tensors (a plain channel concat) through two base pointers.
 // bf16: mma.sync m16n8k16 on the tensor cores with f32 accumulation
 // (ldmatrix fragments); f32: an FMA loop on the same tiles. The statistics
 // reduce in registers, then over the warp (shuffles) and the block (shared
@@ -29,13 +38,13 @@
 // which the caller zeroes. The sums' order differs from the TPU's.
 //
 // Bound: operations. Per 8-tile batch of 128^3 tiles the calls do 116 to
-// 4398 GFLOP against 268 to 3221 MB moved, 290 to 2700 flops per byte, at
+// 4600 GFLOP against 268 to 3221 MB moved, 290 to 2700 flops per byte, at
 // or above the H100's ~295 bf16 flops-per-byte ridge. The design is the
-// simple one: the 8 groups of one voxel tile run as 8 neighbouring blocks,
-// so x comes from device memory about once, and each x vector is read
-// into shared memory once per (group, tap) that uses it: 64 times in the
-// phased form, 27 in the dil-2 form, mostly from L2. wgmma, TMA and one
-// block per tile for all 8 phases are later work.
+// simple one: the groups of one voxel tile run as neighbouring blocks, so
+// x comes from device memory about once, and each x vector is read into
+// shared memory once per (group, column tile, tap) that uses it, mostly
+// from L2. wgmma, TMA, one block per tile for all 8 phases, and skipping
+// the block-diagonal zeros of the dense dil-2 weight are later work.
 // Offsets are 64-bit. The kernels allocate nothing, launch on the caller's
 // stream and report launch errors through cudaGetLastError().
 
@@ -49,6 +58,10 @@ constexpr int kThreads = 128;  // 4 warps
 constexpr int kBM = 128;       // voxels per block (32 per warp)
 constexpr int kStages = 3;
 
+// the tap geometry: which input voxel a tap of a group reads
+enum Form { kPhased, kDil2, kExt };
+__host__ __device__ constexpr int taps(int form) { return form == kDil2 ? 27 : 8; }
+
 struct Args {
   const void* x0;     // (B, n, n, n, c0)
   const void* x1;     // (B, n, n, n, c1) or x0 when c1 == 0
@@ -59,10 +72,11 @@ struct Args {
   int ldw, wcol;      // group g's columns start at g * wcol
   const float* bias;  // bias of group g, channel o: bias[g * bcol + o]
   int bcol;
-  void* y;            // (B, n, n, n, 8 * co)
-  float* s1;          // (B, 8 * co), zeroed by the caller
+  void* y;            // (B, m, m, m, groups * co)
+  float* s1;          // (B, groups * co), zeroed by the caller; null: no sums
   float* s2;
-  int n, co;
+  int n, m;           // input and output grid per axis
+  int groups, co;     // groups of co output columns each
 };
 
 template <typename T> struct Vec;
@@ -81,12 +95,16 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 }
 
 // block offset of tap t for group g, in each of z, y, x
-template <int kTaps>
+template <int kForm>
 __device__ __forceinline__ void tap_offset(int g, int t, int& dz, int& dy, int& dx) {
-  if (kTaps == 8) {  // phased: phase g = (a, b, c), tap t = (sz, sy, sx)
+  if (kForm == kPhased) {  // phase g = (a, b, c), tap t = (sz, sy, sx)
     dz = ((g >> 2) & 1) + ((t >> 2) & 1) - 1;
     dy = ((g >> 1) & 1) + ((t >> 1) & 1) - 1;
     dx = (g & 1) + (t & 1) - 1;
+  } else if (kForm == kExt) {  // output voxel v' reads v' + s - 1
+    dz = ((t >> 2) & 1) - 1;
+    dy = ((t >> 1) & 1) - 1;
+    dx = (t & 1) - 1;
   } else {  // dil-2: tap t = (dz, dy, dx) of a 3^3 kernel, every group alike
     dz = t / 9 - 1;
     dy = (t / 3) % 3 - 1;
@@ -105,15 +123,16 @@ struct Smem {
   float red[kThreads / 32][BN][2];
 };
 
-// Start the cp.async loads of k-tile kt into ring stage st.
-template <typename T, int BN, int kTaps>
+// Start the cp.async loads of k-tile kt into ring stage st; rz/ry/rx are
+// the output coordinates of this thread's 4 loader rows.
+template <typename T, int BN, int kForm>
 __device__ __forceinline__ void load_tile(Smem<T, BN>& sm, const Args& p, int st, int kt, int g,
                                           int ct, int64_t batch_vox, const int (&rz)[4],
                                           const int (&ry)[4], const int (&rx)[4]) {
   constexpr int V = Vec<T>::N;
   constexpr int BK = Smem<T, BN>::BK;
   const int tid = threadIdx.x;
-  const int ktot = kTaps * p.cg;
+  const int ktot = taps(kForm) * p.cg;
   const int n = p.n;
   // A: this thread's 4 rows, vector column tid % 4
   {
@@ -124,7 +143,7 @@ __device__ __forceinline__ void load_tile(Smem<T, BN>& sm, const Args& p, int st
     if (kin) {
       t = k / p.cg;
       c = k - t * p.cg;
-      tap_offset<kTaps>(g, t, dz, dy, dx);
+      tap_offset<kForm>(g, t, dz, dy, dx);
     }
     const int lane = g * p.glane + c;
     const bool second = lane >= p.c0;
@@ -301,7 +320,7 @@ __device__ __forceinline__ void store2(__nv_bfloat16* dst, float v0, float v1) {
   *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
 }
 
-template <typename T, int BN, int kTaps>
+template <typename T, int BN, int kForm>
 __global__ void __launch_bounds__(kThreads) conv_stats_kernel(const Args p) {
   __shared__ __align__(16) Smem<T, BN> sm;
   const int ctiles = (p.co + BN - 1) / BN;
@@ -309,31 +328,33 @@ __global__ void __launch_bounds__(kThreads) conv_stats_kernel(const Args p) {
   const int ct = blockIdx.x - g * ctiles;
   const int tile = blockIdx.y;
   const int64_t b = blockIdx.z;
-  const int n = p.n;
-  const int64_t n3 = static_cast<int64_t>(n) * n * n;
+  const int m = p.m;
+  const int64_t n3 = static_cast<int64_t>(p.n) * p.n * p.n;
+  const int64_t m3 = static_cast<int64_t>(m) * m * m;
   const int64_t vox0 = static_cast<int64_t>(tile) * kBM;
 
-  // coordinates of this thread's 4 loader rows (rz < 0: past the volume)
+  // output coordinates of this thread's 4 loader rows (rz < 0: past the
+  // volume)
   int rz[4], ry[4], rx[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int64_t v = vox0 + (threadIdx.x >> 2) + 32 * i;
-    if (v < n3) {
-      rz[i] = static_cast<int>(v / (static_cast<int64_t>(n) * n));
-      const int rem = static_cast<int>(v - static_cast<int64_t>(rz[i]) * n * n);
-      ry[i] = rem / n;
-      rx[i] = rem - ry[i] * n;
+    if (v < m3) {
+      rz[i] = static_cast<int>(v / (static_cast<int64_t>(m) * m));
+      const int rem = static_cast<int>(v - static_cast<int64_t>(rz[i]) * m * m);
+      ry[i] = rem / m;
+      rx[i] = rem - ry[i] * m;
     } else {
       rz[i] = -1;
       ry[i] = rx[i] = 0;
     }
   }
 
-  const int ktiles = (kTaps * p.cg + Smem<T, BN>::BK - 1) / Smem<T, BN>::BK;
-  const int64_t batch_vox = b * n3;
+  const int ktiles = (taps(kForm) * p.cg + Smem<T, BN>::BK - 1) / Smem<T, BN>::BK;
+  const int64_t batch_vox = b * n3;  // first input voxel of batch entry b
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    if (s < ktiles) load_tile<T, BN, kTaps>(sm, p, s, s, g, ct, batch_vox, rz, ry, rx);
+    if (s < ktiles) load_tile<T, BN, kForm>(sm, p, s, s, g, ct, batch_vox, rz, ry, rx);
     cp_async_commit();
   }
   Core<T, BN> core;
@@ -342,29 +363,33 @@ __global__ void __launch_bounds__(kThreads) conv_stats_kernel(const Args p) {
     cp_async_wait<kStages - 2>();
     __syncthreads();  // tile kt landed; every thread is done with tile kt-1's stage
     const int nk = kt + kStages - 1;
-    if (nk < ktiles) load_tile<T, BN, kTaps>(sm, p, nk % kStages, nk, g, ct, batch_vox, rz, ry, rx);
+    if (nk < ktiles) load_tile<T, BN, kForm>(sm, p, nk % kStages, nk, g, ct, batch_vox, rz, ry, rx);
     cp_async_commit();
     core.step(sm, kt % kStages);
   }
   cp_async_wait<0>();
 
   // epilogue: bias in f32, statistics from the f32 values, y rounded once
-  const int ldy = 8 * p.co;
+  const int ldy = p.groups * p.co;
+  const bool sums = p.s1 != nullptr;  // the same for every thread
   T* y = static_cast<T*>(p.y);
 #pragma unroll
   for (int s = 0; s < Core<T, BN>::NS; ++s) core.c1[s] = core.c2[s] = 0.f;
   core.each([&](int row, int col, int s, float v0, float v1) {
     const int gc = ct * BN + col;
     const int64_t v = vox0 + row;
-    if (gc >= p.co || v >= n3) return;  // co % 8 == 0: the pair is in or out
+    if (gc >= p.co || v >= m3) return;  // co % 8 == 0: the pair is in or out
     v0 += p.bias[g * p.bcol + gc];
     v1 += p.bias[g * p.bcol + gc + 1];
-    store2(y + (batch_vox + v) * ldy + g * p.co + gc, v0, v1);
-    core.c1[s] += v0;
-    core.c1[s + 1] += v1;
-    core.c2[s] += v0 * v0;
-    core.c2[s + 1] += v1 * v1;
+    store2(y + (b * m3 + v) * ldy + g * p.co + gc, v0, v1);
+    if (sums) {
+      core.c1[s] += v0;
+      core.c1[s + 1] += v1;
+      core.c2[s] += v0 * v0;
+      core.c2[s + 1] += v1 * v1;
+    }
   });
+  if (!sums) return;
   core.reduce(sm);
   __syncthreads();
   for (int j = threadIdx.x; j < BN; j += kThreads) {
@@ -381,28 +406,36 @@ __global__ void __launch_bounds__(kThreads) conv_stats_kernel(const Args p) {
   }
 }
 
-template <typename T, int BN, int kTaps>
+template <typename T, int BN, int kForm>
 int launch_bn(const Args& a, long long batch, cudaStream_t stream) {
-  const int64_t n3 = static_cast<int64_t>(a.n) * a.n * a.n;
-  const int64_t tiles = (n3 + kBM - 1) / kBM;
+  const int64_t m3 = static_cast<int64_t>(a.m) * a.m * a.m;
+  const int64_t tiles = (m3 + kBM - 1) / kBM;
   const int ctiles = (a.co + BN - 1) / BN;
   if (tiles > 65535 || batch > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   if (tiles == 0 || batch == 0) return 0;
-  dim3 grid(8 * ctiles, static_cast<unsigned>(tiles), static_cast<unsigned>(batch));
-  conv_stats_kernel<T, BN, kTaps><<<grid, kThreads, 0, stream>>>(a);
+  dim3 grid(a.groups * ctiles, static_cast<unsigned>(tiles), static_cast<unsigned>(batch));
+  conv_stats_kernel<T, BN, kForm><<<grid, kThreads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int kTaps>
+template <typename T, int kForm>
 int launch(const Args& a, long long batch, cudaStream_t stream) {
   constexpr int V = Vec<T>::N;
   const bool aligned = a.c0 % V == 0 && a.c1 % V == 0 && a.cg % V == 0 && a.glane % V == 0 &&
                        a.co % 8 == 0 && a.ldw % V == 0 && a.wcol % V == 0 && a.n > 0 &&
                        a.co > 0 && a.cg > 0;
   if (!aligned) return static_cast<int>(cudaErrorInvalidValue);
-  if (a.co <= 16) return launch_bn<T, 16, kTaps>(a, batch, stream);
-  if (a.co <= 32) return launch_bn<T, 32, kTaps>(a, batch, stream);
-  return launch_bn<T, 64, kTaps>(a, batch, stream);
+  if (a.co <= 16) return launch_bn<T, 16, kForm>(a, batch, stream);
+  if (a.co <= 32) return launch_bn<T, 32, kForm>(a, batch, stream);
+  return launch_bn<T, 64, kForm>(a, batch, stream);
+}
+
+template <int kForm>
+int launch_dtype(int dtype, const Args& a, long long batch, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch<float, kForm>(a, batch, s);
+  if (dtype == 1) return launch<__nv_bfloat16, kForm>(a, batch, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -415,20 +448,34 @@ extern "C" int airseg_phased_conv_stats(int dtype, const void* x0, int c0, const
                                         const void* w_all, const float* b_all, void* y,
                                         float* s1, float* s2, long long batch, int n, int co,
                                         void* stream) {
-  Args a{x0, c1 ? x1 : x0, c0, c1, 0, c0 + c1, w_all, 8 * co, co, b_all, co, y, s1, s2, n, co};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float, 8>(a, batch, s);
-  if (dtype == 1) return launch<__nv_bfloat16, 8>(a, batch, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  Args a{x0, c1 ? x1 : x0, c0, c1, 0, c0 + c1, w_all, 8 * co, co, b_all, co, y, s1, s2,
+         n, n, 8, co};
+  return launch_dtype<kPhased>(dtype, a, batch, stream);
 }
 
 // x (B, n, n, n, 8Ci); w (3, 3, 3, Ci, Co) in x's type; b (Co,) f32.
 extern "C" int airseg_dil2_conv_stats(int dtype, const void* x, int ci, const void* w,
                                       const float* b, void* y, float* s1, float* s2,
                                       long long batch, int n, int co, void* stream) {
-  Args a{x, x, 8 * ci, 0, ci, ci, w, co, 0, b, 0, y, s1, s2, n, co};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float, 27>(a, batch, s);
-  if (dtype == 1) return launch<__nv_bfloat16, 27>(a, batch, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  Args a{x, x, 8 * ci, 0, ci, ci, w, co, 0, b, 0, y, s1, s2, n, n, 8, co};
+  return launch_dtype<kDil2>(dtype, a, batch, stream);
+}
+
+// x (B, n, n, n, c8); wd (3, 3, 3, c8, c8o) in x's type, any dense kernel;
+// bg (c8o,) f32. y (B, n, n, n, c8o), s1, s2 (B, c8o).
+extern "C" int airseg_dil2_dense_conv_stats(int dtype, const void* x, int c8, const void* wd,
+                                            const float* bg, void* y, float* s1, float* s2,
+                                            long long batch, int n, int c8o, void* stream) {
+  Args a{x, x, c8, 0, 0, c8, wd, c8o, 0, bg, 0, y, s1, s2, n, n, 1, c8o};
+  return launch_dtype<kDil2>(dtype, a, batch, stream);
+}
+
+// x0, x1 as for airseg_phased_conv_stats; w_all (8, c0 + c1, c8o) in x's
+// type; b_all (c8o,) f32. y (B, n+1, n+1, n+1, c8o), no sums.
+extern "C" int airseg_phased_conv_ext(int dtype, const void* x0, int c0, const void* x1, int c1,
+                                      const void* w_all, const float* b_all, void* y,
+                                      long long batch, int n, int c8o, void* stream) {
+  Args a{x0, c1 ? x1 : x0, c0, c1, 0, c0 + c1, w_all, c8o, 0, b_all, 0, y, nullptr, nullptr,
+         n, n + 1, 1, c8o};
+  return launch_dtype<kExt>(dtype, a, batch, stream);
 }

@@ -26,7 +26,10 @@ Two forwards over one parameter tree (DHWIO weights, NDHWC tensors):
     kernel (ops/epilogue_s2d.py). Equal to `apply` up to float
     reassociation. Under `SEUNetConfig(conv_stats=True)` the phased and
     dil-2 blocks instead run a fused conv + statistics kernel
-    (ops/conv_stats.py) and normalize from its sums.
+    (ops/conv_stats.py) and normalize from its sums; under
+    `SEUNetConfig(conv_epi=True)` the dil-2 blocks run the dense conv +
+    statistics kernel into the gathered epilogue and the phased blocks
+    the ungathered phased conv kernel into the phased epilogue.
 
 `SEUNet` is the `nn.Module` holding the parameters under the reference
 state_dict names.
@@ -40,8 +43,9 @@ tests hand both packages the same numbers). Gradients flow through
 everything, `prepare_fast_params` included: the fast path's fused
 blocks, and the s2d max pool, are `torch.autograd.Function`s with the
 JAX package's hand-written backwards. `cfg.remat` checkpoints each block
-(`torch.utils.checkpoint`, non-reentrant), except the phased blocks,
-whose Function saves only the block inputs anyway.
+(`torch.utils.checkpoint`, non-reentrant), except the phased blocks and,
+under `conv_epi`, the dil-2 blocks, whose Functions save only the block
+inputs anyway.
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops import (
     conv3d,
     dil2_conv_stats,
+    dil2_gated_block,
     gated_norm_block,
     instance_norm,
     leaky_relu,
@@ -72,6 +77,7 @@ from ..ops.s2d import (
     bias_to_s2d,
     conv3_weight_to_s2d,
     depth_to_space,
+    dil2_dense_weight,
     dil2_group_weight,
     grouped_pointwise_multi_pre,
     grouped_pointwise_multi_weight,
@@ -104,6 +110,19 @@ class SEUNetConfig:
     # `dil2_conv_stats` (ops/conv_stats.py), each followed by the InstanceNorm
     # from the kernel's sums, LeakyReLU and the SE gates in plain torch
     conv_stats: bool = False
+    # the conv-to-epilogue forward of the JAX package's
+    # SEUNetConfig(batch_minor=True, use_pallas_epi=True) with
+    # PALLAS_DIL2BM=1 (the batch-minor layout itself is not carried over):
+    # the three dil-2 blocks run the dense block-diagonal conv + statistics
+    # kernel `dil2_dense_conv_stats` into the gathered epilogue, the five
+    # phased blocks the ungathered conv kernel `phased_conv_ungathered`
+    # into the phased epilogue (ops/conv_stats.py, ops/epilogue_s2d.py)
+    conv_epi: bool = False
+
+    def __post_init__(self):
+        if self.conv_epi and self.conv_stats:
+            # the JAX package ignores use_pallas under batch_minor
+            raise ValueError("conv_epi and conv_stats are two configurations; pick one")
 
 
 # (name, kind, (cin, cout)); kind: sse1/sse2 = SSEConv with 1/2 gates
@@ -373,6 +392,10 @@ def prepare_fast_params(params: Params, cfg: SEUNetConfig,
             fp[name] = {"w": p[name]["conv"]["w"], "b": p[name]["conv"]["b"],
                         "wse": wse(name, gates)}
             continue
+        if cfg.conv_epi:  # the dense kernel takes the block-diagonal lift
+            fp[name] = {"wdense": dil2_dense_weight(p[name]["conv"]["w"], dt),
+                        "bg": p[name]["conv"]["b"].repeat(8), "wse": wse(name, gates)}
+            continue
         ng = _DIL2_NG[name]
         fp[name] = {"wgroup": dil2_group_weight(p[name]["conv"]["w"], ng, dt),
                     "bg": p[name]["conv"]["b"].repeat(8), "ng": ng,
@@ -424,26 +447,31 @@ def _norm_gates(y, s1, s2, wse):
     return e
 
 
-def _sse_block_s2d_dil2(pre: Params, x, conv_stats: bool = False):
+def _sse_block_s2d_dil2(pre: Params, x, conv_stats: bool = False, conv_epi: bool = False):
     """Dilation-2 SSEConv on an s2d tensor: the 8 sub-grid dil-1 convs as
     one grouped conv (partial-dense lift), then the gathered epilogue; or,
-    under `conv_stats`, the fused conv + statistics kernel."""
+    under `conv_stats`, the fused conv + statistics kernel; or, under
+    `conv_epi`, the dense conv + statistics kernel into the gathered
+    epilogue (JAX se_unet.py:580-604)."""
     if conv_stats:
         return _norm_gates(*dil2_conv_stats(x, pre["w"], pre["b"]), pre["wse"])
+    if conv_epi:
+        return dil2_gated_block(x, pre["wdense"], pre["bg"], pre["wse"])
     y = conv3d(x, pre["wgroup"], pre["bg"], padding=1, groups=pre["ng"])
     return gated_norm_block(y, pre["wse"])
 
 
-def _sse_block_s2d_phased(pre: Params, x, conv_stats: bool = False):
+def _sse_block_s2d_phased(pre: Params, x, conv_stats: bool = False, conv_epi: bool = False):
     """SSEConv on an s2d tensor (or a list forming a plain concat) via
-    the phased conv, then the phased epilogue; or, under `conv_stats`, the
-    fused conv + statistics kernel."""
+    the phased conv (under `conv_epi` the ungathered conv kernel), then
+    the phased epilogue; or, under `conv_stats`, the fused conv +
+    statistics kernel."""
     xs = list(x) if isinstance(x, (list, tuple)) else [x]
     if conv_stats:
         w_all = pre["w_all"]
         y, s1, s2 = phased_conv_stats(xs, w_all.reshape(8, *w_all.shape[3:]), pre["b_all"])
         return _norm_gates(y, s1, s2, pre["wse"])
-    return phased_gated_block(xs, pre["w_all"], pre["b_all"], pre["wse"])
+    return phased_gated_block(xs, pre["w_all"], pre["b_all"], pre["wse"], ext_kernel=conv_epi)
 
 
 def _cat_block_s2d(pre: Params, x):
@@ -538,12 +566,14 @@ def apply_fast(params: Params, x: torch.Tensor, *,
     computed here when None (in the autograd graph, as training needs).
     `train`: DropLayer with draws from `generator` or `drop_draws`."""
     _sse_block_s2d = _remat(globals()["_sse_block_s2d"], cfg)
-    _sse_block_s2d_dil2 = _remat(partial(globals()["_sse_block_s2d_dil2"],
-                                         conv_stats=cfg.conv_stats), cfg)
-    # the default phased block is a Function that saves its inputs only:
-    # checkpointing it would add a forward replay that nothing reads
-    _sse_block_s2d_phased = partial(globals()["_sse_block_s2d_phased"],
-                                    conv_stats=cfg.conv_stats)
+    modes = dict(conv_stats=cfg.conv_stats, conv_epi=cfg.conv_epi)
+    # the default phased block, and both blocks under conv_epi, are
+    # Functions that save their inputs only: checkpointing them would add a
+    # forward replay that nothing reads
+    _sse_block_s2d_dil2 = partial(globals()["_sse_block_s2d_dil2"], **modes)
+    if not cfg.conv_epi:
+        _sse_block_s2d_dil2 = _remat(_sse_block_s2d_dil2, cfg)
+    _sse_block_s2d_phased = partial(globals()["_sse_block_s2d_phased"], **modes)
     if cfg.conv_stats:
         _sse_block_s2d_phased = _remat(_sse_block_s2d_phased, cfg)
     _cat_block_s2d = _remat(globals()["_cat_block_s2d"], cfg)

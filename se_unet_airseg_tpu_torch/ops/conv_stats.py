@@ -1,10 +1,13 @@
-"""Fused s2d convolution + InstanceNorm statistics (`SEUNetConfig.conv_stats`).
+"""Fused s2d convolutions of the Pallas conv kernels
+(`SEUNetConfig.conv_stats` and `SEUNetConfig.conv_epi`).
 
-Counterpart of the JAX package's `phased_conv_stats` and `dil2_conv_stats`
-(`ops/pallas_s2d.py:1081` and `:404`). Both are one CUDA kernel here
-(`csrc/conv_stats.cu`, built and bound by `ops/cuda_lib.py`) that returns
-the conv output y together with its per-lane sums s1 = sum(y) and
-s2 = sum(y^2) over the voxels, f32, taken before y is rounded:
+Counterparts of the JAX package's `phased_conv_stats`, `dil2_conv_stats`,
+`dil2_conv_stats_bm` and `phased_conv_ext_bm` (`ops/pallas_s2d.py:1081`,
+`:404`, `:1714`, `:2179`). All four are one CUDA kernel here
+(`csrc/conv_stats.cu`, built and bound by `ops/cuda_lib.py`); the three
+statistics forms return the conv output y together with its per-lane sums
+s1 = sum(y) and s2 = sum(y^2) over the voxels, f32, taken before y is
+rounded:
 
   * `phased_conv_stats(xs, w_all, b_all)`: the pad-1 3^3 conv of the
     full-resolution grid on its s2d fold, as the phase-stacked 2^3 block
@@ -12,7 +15,13 @@ s2 = sum(y^2) over the voxels, f32, taken before y is rounded:
     `xs` is one tensor or two forming a plain channel concat, which the
     kernel reads through two pointers;
   * `dil2_conv_stats(x, w, b)`: the dilation-2 3^3 conv on the s2d fold,
-    8 independent dil-1 convs with the reference (3, 3, 3, Ci, Co) kernel.
+    8 independent dil-1 convs with the reference (3, 3, 3, Ci, Co) kernel;
+  * `dil2_dense_conv_stats(x, wd, bg)`: the dense pad-1 3^3 conv of an s2d
+    tensor with any (3, 3, 3, C8, C8o) kernel (the model passes the
+    block-diagonal `s2d.dil2_dense_weight`);
+  * `phased_conv_ungathered(xs, w_all, b_all)`: the phased 2^3 block conv
+    to its UNGATHERED (n+1)^3 output, bias optional (None: zeros), no
+    sums (the conv of `s2d.phased_conv_ext`, rounded once).
 
 Each takes its plain PyTorch version (`*_plain`) for a CPU tensor only; on
 a CUDA tensor it launches the kernel or raises. The plain versions compute
@@ -29,8 +38,7 @@ from __future__ import annotations
 import torch
 
 from .conv import conv3d
-from .cuda_lib import launch
-from .epilogue_s2d import _DTYPE_CODE, F32, _acc, _on_card
+from .cuda_lib import _DTYPE_CODE, F32, _acc, _on_card, _stream, launch
 from .s2d import from_polyphase, phase_windows, phased_conv_ext, to_polyphase
 
 
@@ -61,6 +69,23 @@ def dil2_conv_stats_plain(x, w, b):
     acc = _acc(x.dtype)
     y = conv3d(to_polyphase(x.to(acc)), w.to(acc), b.to(acc), padding=1)
     return _with_sums(from_polyphase(y), x.dtype)
+
+
+def dil2_dense_conv_stats_plain(x, wd, bg):
+    """Plain PyTorch version of `dil2_dense_conv_stats`: the dense 3^3
+    conv with padding 1 and the sums; in f32."""
+    acc = _acc(x.dtype)
+    return _with_sums(conv3d(x.to(acc), wd.to(acc), bg.to(acc), padding=1), x.dtype)
+
+
+def phased_conv_ungathered_plain(xs, w_all, b_all=None):
+    """Plain PyTorch version of `phased_conv_ungathered`: the f32
+    `phased_conv_ext` (list partial sums), rounded once."""
+    xs = list(xs) if isinstance(xs, (list, tuple)) else [xs]
+    dt = xs[0].dtype
+    acc = _acc(dt)
+    b = None if b_all is None else b_all.to(acc)
+    return phased_conv_ext([t.to(acc) for t in xs], w_all.to(acc), b).to(dt)
 
 
 # ------------------------------------------------------------- wrappers
@@ -96,12 +121,23 @@ def _check_weight(w, dtype, device, shape, name):
     return w
 
 
+def _check_dtype(dt):
+    if dt not in _DTYPE_CODE:
+        raise TypeError(f"the conv kernels take float32 or bfloat16, got {dt}")
+
+
+def _check_bias(b, c8, dev, name):
+    b = b.to(device=dev, dtype=F32).contiguous()
+    if b.shape != (c8,):
+        raise ValueError(f"{name} must have shape ({c8},), got {tuple(b.shape)}")
+    return b
+
+
 def _phased_conv_stats_fwd(xs, w_all, b_all):
     if not _on_card(xs[0]):
         return phased_conv_stats_plain(xs, w_all, b_all)
     dt = xs[0].dtype
-    if dt not in _DTYPE_CODE:
-        raise TypeError(f"the conv stats kernel takes float32 or bfloat16, got {dt}")
+    _check_dtype(dt)
     if len(xs) > 2:
         raise ValueError(f"the phased kernel reads one or two inputs, got {len(xs)}")
     b, n, dev = xs[0].shape[0], xs[0].shape[1], xs[0].device
@@ -110,17 +146,14 @@ def _phased_conv_stats_fwd(xs, w_all, b_all):
     if c8 % 64:
         raise ValueError(f"8Co must be a multiple of 64, got {c8}")
     w_all = _check_weight(w_all, dt, dev, (8, cin, c8), "w_all")
-    b_all = b_all.to(device=dev, dtype=F32).contiguous()
-    if b_all.shape != (c8,):
-        raise ValueError(f"b_all must have shape ({c8},), got {tuple(b_all.shape)}")
+    b_all = _check_bias(b_all, c8, dev, "b_all")
     y, s1, s2 = _outputs(xs[0], b, n, c8)
     x1 = xs[1] if len(xs) == 2 else None
     with torch.cuda.device(dev):
         launch("airseg_phased_conv_stats", "phased_conv_stats", _DTYPE_CODE[dt],
                xs[0].data_ptr(), xs[0].shape[-1], None if x1 is None else x1.data_ptr(),
                0 if x1 is None else x1.shape[-1], w_all.data_ptr(), b_all.data_ptr(),
-               y.data_ptr(), s1.data_ptr(), s2.data_ptr(), b, n, c8 // 8,
-               torch.cuda.current_stream(dev).cuda_stream)
+               y.data_ptr(), s1.data_ptr(), s2.data_ptr(), b, n, c8 // 8, _stream(y))
     return y, s1, s2
 
 
@@ -128,8 +161,7 @@ def _dil2_conv_stats_fwd(x, w, b):
     if not _on_card(x):
         return dil2_conv_stats_plain(x, w, b)
     dt = x.dtype
-    if dt not in _DTYPE_CODE:
-        raise TypeError(f"the conv stats kernel takes float32 or bfloat16, got {dt}")
+    _check_dtype(dt)
     bsz, n, dev = x.shape[0], x.shape[1], x.device
     x = _check_x(x, dt, dev, bsz, n, "x")
     ci, co = x.shape[-1] // 8, w.shape[-1]
@@ -137,23 +169,66 @@ def _dil2_conv_stats_fwd(x, w, b):
     if x.shape[-1] % 8 or ci % vec or co % 8:
         raise ValueError(f"Ci must be a multiple of {vec} and Co of 8, got Ci={ci}, Co={co}")
     w = _check_weight(w, dt, dev, (3, 3, 3, ci, co), "w")
-    b = b.to(device=dev, dtype=F32).contiguous()
-    if b.shape != (co,):
-        raise ValueError(f"b must have shape ({co},), got {tuple(b.shape)}")
+    b = _check_bias(b, co, dev, "b")
     y, s1, s2 = _outputs(x, bsz, n, 8 * co)
     with torch.cuda.device(dev):
         launch("airseg_dil2_conv_stats", "dil2_conv_stats", _DTYPE_CODE[dt], x.data_ptr(), ci,
                w.data_ptr(), b.data_ptr(), y.data_ptr(), s1.data_ptr(), s2.data_ptr(), bsz,
-               n, co, torch.cuda.current_stream(dev).cuda_stream)
+               n, co, _stream(y))
     return y, s1, s2
+
+
+def _dil2_dense_conv_stats_fwd(x, wd, bg):
+    if not _on_card(x):
+        return dil2_dense_conv_stats_plain(x, wd, bg)
+    dt = x.dtype
+    _check_dtype(dt)
+    bsz, n, dev = x.shape[0], x.shape[1], x.device
+    x = _check_x(x, dt, dev, bsz, n, "x")
+    c8, c8o = x.shape[-1], wd.shape[-1]
+    if c8o % 64:
+        raise ValueError(f"C8o must be a multiple of 64, got {c8o}")
+    wd = _check_weight(wd, dt, dev, (3, 3, 3, c8, c8o), "wd")
+    bg = _check_bias(bg, c8o, dev, "bg")
+    y, s1, s2 = _outputs(x, bsz, n, c8o)
+    with torch.cuda.device(dev):
+        launch("airseg_dil2_dense_conv_stats", "dil2_dense_conv_stats", _DTYPE_CODE[dt],
+               x.data_ptr(), c8, wd.data_ptr(), bg.data_ptr(), y.data_ptr(), s1.data_ptr(),
+               s2.data_ptr(), bsz, n, c8o, _stream(y))
+    return y, s1, s2
+
+
+def _phased_conv_ungathered_fwd(xs, w_all, b_all):
+    if not _on_card(xs[0]):
+        return phased_conv_ungathered_plain(xs, w_all, b_all)
+    dt = xs[0].dtype
+    _check_dtype(dt)
+    if len(xs) > 2:
+        raise ValueError(f"the phased kernel reads one or two inputs, got {len(xs)}")
+    b, n, dev = xs[0].shape[0], xs[0].shape[1], xs[0].device
+    xs = [_check_x(t, dt, dev, b, n, f"xs[{i}]") for i, t in enumerate(xs)]
+    cin, c8o = sum(t.shape[-1] for t in xs), w_all.shape[-1]
+    if c8o % 64:
+        raise ValueError(f"8Co must be a multiple of 64, got {c8o}")
+    w_all = _check_weight(w_all, dt, dev, (2, 2, 2, cin, c8o), "w_all")
+    b_all = _check_bias(b_all, c8o, dev, "b_all")
+    m = n + 1
+    y = torch.empty((b, m, m, m, c8o), dtype=dt, device=dev)
+    x1 = xs[1] if len(xs) == 2 else None
+    with torch.cuda.device(dev):
+        launch("airseg_phased_conv_ext", "phased_conv_ungathered", _DTYPE_CODE[dt],
+               xs[0].data_ptr(), xs[0].shape[-1], None if x1 is None else x1.data_ptr(),
+               0 if x1 is None else x1.shape[-1], w_all.data_ptr(), b_all.data_ptr(),
+               y.data_ptr(), b, n, c8o, _stream(y))
+    return y
 
 
 # ---------------------------------------------------------- autograd
 
 
 def _plain_vjp(plain, inputs, cts, needs):
-    """Gradients of `plain(*inputs)` (a (y, s1, s2) function) against the
-    cotangents `cts`, for the inputs flagged in `needs`; None elsewhere."""
+    """Gradients of `plain(*inputs)` against the cotangents `cts`, for the
+    inputs flagged in `needs`; None elsewhere."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(need) for t, need in zip(inputs, needs)]
         outs = plain(*leaves)
@@ -162,40 +237,27 @@ def _plain_vjp(plain, inputs, cts, needs):
     return [next(grads) if need else None for need in needs]
 
 
-class _PhasedConvStats(torch.autograd.Function):
-    """phased_conv_stats under autograd: saves (w_all, b_all, *xs);
-    backward = autograd of `phased_conv_stats_plain`."""
+class _KernelVjp(torch.autograd.Function):
+    """A conv wrapper under autograd: `fwd(*inputs)` forward, saving the
+    inputs only; backward = autograd of `plain(*inputs)`."""
 
     @staticmethod
-    def forward(ctx, w_all, b_all, *xs):
-        ctx.save_for_backward(w_all, b_all, *xs)
-        return _phased_conv_stats_fwd(list(xs), w_all, b_all)
+    def forward(ctx, fwd, plain, *inputs):
+        ctx.plain = plain
+        ctx.save_for_backward(*inputs)
+        return fwd(*inputs)
 
     @staticmethod
-    def backward(ctx, gy, g1, g2):
-        w_all, b_all, *xs = ctx.saved_tensors
-        grads = _plain_vjp(lambda w, b, *x: phased_conv_stats_plain(list(x), w, b),
-                           [w_all, b_all, *xs], (gy, g1, g2), ctx.needs_input_grad)
-        return tuple(grads)
+    def backward(ctx, *cts):
+        return (None, None, *_plain_vjp(ctx.plain, ctx.saved_tensors, cts,
+                                        ctx.needs_input_grad[2:]))
 
 
-class _Dil2ConvStats(torch.autograd.Function):
-    """dil2_conv_stats under autograd: saves (x, w, b); backward =
-    autograd of `dil2_conv_stats_plain`."""
-
-    @staticmethod
-    def forward(ctx, x, w, b):
-        ctx.save_for_backward(x, w, b)
-        return _dil2_conv_stats_fwd(x, w, b)
-
-    @staticmethod
-    def backward(ctx, gy, g1, g2):
-        return tuple(_plain_vjp(dil2_conv_stats_plain, ctx.saved_tensors, (gy, g1, g2),
-                                ctx.needs_input_grad))
-
-
-def _wants_grad(*ts) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+def _call(fwd, plain, *inputs):
+    """fwd(*inputs), through `_KernelVjp` when a gradient is wanted."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return _KernelVjp.apply(fwd, plain, *inputs)
+    return fwd(*inputs)
 
 
 def phased_conv_stats(xs, w_all, b_all):
@@ -205,15 +267,34 @@ def phased_conv_stats(xs, w_all, b_all):
     flattened); b_all (8Co,). Returns y (B, n, n, n, 8Co) in x's dtype,
     s1, s2 (B, 8Co) f32. Replaces phased_conv_stats."""
     xs = list(xs) if isinstance(xs, (list, tuple)) else [xs]
-    if _wants_grad(*xs, w_all, b_all):
-        return _PhasedConvStats.apply(w_all, b_all, *xs)
-    return _phased_conv_stats_fwd(xs, w_all, b_all)
+    return _call(lambda w, b, *x: _phased_conv_stats_fwd(list(x), w, b),
+                 lambda w, b, *x: phased_conv_stats_plain(list(x), w, b), w_all, b_all, *xs)
 
 
 def dil2_conv_stats(x, w, b):
     """Dilation-2 s2d conv + statistics: x (B, n, n, n, 8Ci), w the
     reference (3, 3, 3, Ci, Co) kernel, b (Co,). Returns y (B, n, n, n,
     8Co) in x's dtype, s1, s2 (B, 8Co) f32. Replaces dil2_conv_stats."""
-    if _wants_grad(x, w, b):
-        return _Dil2ConvStats.apply(x, w, b)
-    return _dil2_conv_stats_fwd(x, w, b)
+    return _call(_dil2_conv_stats_fwd, dil2_conv_stats_plain, x, w, b)
+
+
+def dil2_dense_conv_stats(x, wd, bg):
+    """Dense pad-1 3^3 conv of an s2d tensor + statistics: x (B, n, n, n,
+    C8), wd (3, 3, 3, C8, C8o) in x's dtype, bg (C8o,). Returns y (B, n,
+    n, n, C8o) in x's dtype, s1, s2 (B, C8o) f32. Replaces
+    dil2_conv_stats_bm."""
+    return _call(_dil2_dense_conv_stats_fwd, dil2_dense_conv_stats_plain, x, wd, bg)
+
+
+def phased_conv_ungathered(xs, w_all, b_all=None):
+    """The phased conv's ungathered output: xs (B, n, n, n, Cin), or a
+    list of two forming a plain concat; w_all (2, 2, 2, Cin, 8Co) in x's
+    dtype; b_all (8Co,) or None (no bias). Returns y_ext (B, n+1, n+1,
+    n+1, 8Co) in x's dtype, accumulated in f32 and rounded once. Replaces
+    phased_conv_ext_bm and _pconv_kgrid_forward."""
+    xs = list(xs) if isinstance(xs, (list, tuple)) else [xs]
+    if b_all is None:
+        b_all = torch.zeros(w_all.shape[-1], dtype=F32, device=w_all.device)
+    return _call(lambda w, b, *x: _phased_conv_ungathered_fwd(list(x), w, b),
+                 lambda w, b, *x: phased_conv_ungathered_plain(list(x), w, b),
+                 w_all, b_all, *xs)

@@ -6,7 +6,9 @@ git-ignored `csrc/build/`, named by the sources' hash (an edited source
 builds anew), at first use, and loaded with ctypes.
 
 `launch_counts` holds one count per kernel; a wrapper adds one where it
-launches its kernel and nowhere else.
+launches its kernel and nowhere else. The helpers below are the wrappers'
+shared rules: which tensors go to a kernel, in which type code, and the
+accumulation type of the plain versions.
 """
 
 from __future__ import annotations
@@ -20,18 +22,45 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = _CSRC / "build"
-_SOURCES = ("epilogue.cu", "pool_s2d.cu", "conv_stats.cu")
+_SOURCES = ("epilogue.cu", "pool_s2d.cu", "conv_stats.cu", "norm_leaky.cu")
 
 launch_counts = {"gathered_epilogue": 0, "phased_epilogue": 0,
                  "phased_normalize": 0, "max_pool_s2d_bwd": 0,
-                 "phased_conv_stats": 0, "dil2_conv_stats": 0}
+                 "phased_conv_stats": 0, "dil2_conv_stats": 0,
+                 "dil2_dense_conv_stats": 0, "phased_conv_ungathered": 0,
+                 "instance_norm_leaky_fwd": 0, "instance_norm_leaky_bwd": 0}
 
 
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+F32 = torch.float32
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # the kernels' dtype argument
+
+
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """Accumulation type: float32, or float64 for float64 inputs."""
+    return torch.float64 if dtype == torch.float64 else F32
+
+
+def _on_card(t) -> bool:
+    """False for a CPU tensor (the caller takes the plain version); True
+    for a CUDA tensor; raises for any other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return True
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -45,6 +74,10 @@ _SIGNATURES = {
     "airseg_max_pool_s2d_bwd": [_I, _P, _P, _P, _LL, _I, _I, _P],
     "airseg_phased_conv_stats": [_I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "airseg_dil2_conv_stats": [_I, _P, _I, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
+    "airseg_dil2_dense_conv_stats": [_I, _P, _I, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
+    "airseg_phased_conv_ext": [_I, _P, _I, _P, _I, _P, _P, _P, _LL, _I, _I, _P],
+    "airseg_norm_leaky_fwd": [_I, _P, _P, _P, _P, _LL, _LL, _I, _P],
+    "airseg_norm_leaky_bwd": [_I, _P, _P, _P, _P, _P, _LL, _LL, _I, _P],
 }
 
 

@@ -28,12 +28,19 @@ hand the affine to the kernels:
   * `gated_norm_block(y, wse)`: gathered form (dense-lift, grouped
     dil-2 and CATConv blocks);
   * `phased_gated_block(xs, w_all, b_all, wse)`: phased conv (cuDNN,
-    list partial sums), 8-phase-window statistics, phased form.
+    list partial sums; with `ext_kernel`, the `phased_conv_ungathered`
+    kernel), 8-phase-window statistics, phased form
+    (`_phased_gated_forward_bm`, pallas_s2d.py:1280);
+  * `dil2_gated_block(x, wd, bg, wse)`: the dense dil-2 conv with its
+    sums (`dil2_dense_conv_stats`), the affine from those sums, gathered
+    form (`_dil2_gated_forward_bm`, pallas_s2d.py:2263).
 
-Under autograd each is a `torch.autograd.Function` whose backward is the
-JAX package's hand-written epilogue backward (`pallas_s2d.py:2362-2547`)
-in plain torch ops. It saves the block inputs only and recomputes the
-statistics (and, for the phased block, the conv) in backward. The gate
+Under autograd each is a `torch.autograd.Function` that saves the block
+inputs only. The gathered and phased blocks' backward is the JAX
+package's hand-written epilogue backward (`pallas_s2d.py:2362-2547`) in
+plain torch ops, recomputing the statistics (and, for the phased block,
+the conv); the dil-2 block's is the same core backward after a replay of
+the dense conv (the XLA-composition vjp of pallas_s2d.py:2296). The gate
 weights are the compact (G, C) `wse`, so the backward returns their
 gradient directly. Without autograd (inference) the blocks call the
 forward alone.
@@ -45,17 +52,11 @@ from itertools import product
 
 import torch
 
-from .cuda_lib import launch
+from .conv import conv3d
+from .conv_stats import dil2_dense_conv_stats, phased_conv_ungathered
+from .cuda_lib import _DTYPE_CODE, F32, _acc, _on_card, _stream, launch
 from .norms import leaky_relu
 from .s2d import _affine8, phase_windows, phased_conv_ext
-
-F32 = torch.float32
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def _acc(dtype: torch.dtype) -> torch.dtype:
-    """Accumulation type: float32, or float64 for float64 inputs."""
-    return torch.float64 if dtype == torch.float64 else F32
 
 
 # ----------------------------------------------------------- plain versions
@@ -123,20 +124,6 @@ def _check_common(y, scale8, shift8, wse, c8):
     if y.data_ptr() % 16:
         raise ValueError("input must be 16-byte aligned")
     return vec
-
-
-def _on_card(t) -> bool:
-    """False for a CPU tensor (the caller takes the plain version); True
-    for a CUDA tensor; raises for any other device."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"unsupported device {t.device}")
-    return True
-
-
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def gathered_epilogue(y, scale8, shift8, wse=None):
@@ -343,11 +330,20 @@ def _gated_norm_forward(y, wse, eps):
     return gathered_epilogue(y, scale8, shift8, wse)
 
 
-def _phased_forward(xs, w_all, b_all, wse, eps):
+def _phased_forward(xs, w_all, b_all, wse, eps, ext_kernel=False):
     n = xs[0].shape[1]
-    y = phased_conv_ext(xs, w_all, b_all).contiguous()
+    conv = phased_conv_ungathered if ext_kernel else phased_conv_ext
+    y = conv(xs, w_all, b_all).contiguous()
     scale8, shift8 = _phased_affine(y, n, eps)
     return phased_epilogue(y, scale8, shift8, wse)
+
+
+def _dil2_forward(x, wd, bg, wse, eps):
+    y, s1, s2 = dil2_dense_conv_stats(x, wd, bg)
+    b, c = y.shape[0], y.shape[-1] // 8
+    nvox = 8 * y.shape[1] * y.shape[2] * y.shape[3]
+    scale8, shift8 = _affine8(s1.reshape(b, 8, c).sum(1), s2.reshape(b, 8, c).sum(1), nvox, eps)
+    return gathered_epilogue(y, scale8, shift8, wse)
 
 
 class _GatedNormBlock(torch.autograd.Function):
@@ -374,18 +370,43 @@ class _PhasedGatedBlock(torch.autograd.Function):
     custom vjp of pallas_s2d.py:1031-1054)."""
 
     @staticmethod
-    def forward(ctx, w_all, b_all, wse, eps, *xs):
+    def forward(ctx, w_all, b_all, wse, eps, ext_kernel, *xs):
         ctx.eps = eps
         ctx.save_for_backward(w_all, b_all, wse, *xs)
-        return _phased_forward(list(xs), w_all, b_all, wse, eps)
+        return _phased_forward(list(xs), w_all, b_all, wse, eps, ext_kernel)
 
     @staticmethod
     def backward(ctx, ct):
         w_all, b_all, wse, *xs = ctx.saved_tensors
         ng = ctx.needs_input_grad
         dxs, dw, db, d_wse = _manual_phased_gated_bwd(
-            xs, w_all, b_all, wse, ct, ctx.eps, needs=[*ng[4:], ng[0], ng[1]])
-        return (dw, db, d_wse if ng[2] else None, None, *dxs)
+            xs, w_all, b_all, wse, ct, ctx.eps, needs=[*ng[5:], ng[0], ng[1]])
+        return (dw, db, d_wse if ng[2] else None, None, None, *dxs)
+
+
+class _Dil2GatedBlock(torch.autograd.Function):
+    """dil2_gated_block under autograd: saves the block inputs only
+    (x, wd, bg, wse); backward = the dense conv replayed under autograd,
+    `_gated_core_bwd` on its output, then the conv's backward."""
+
+    @staticmethod
+    def forward(ctx, x, wd, bg, wse, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, wd, bg, wse)
+        return _dil2_forward(x, wd, bg, wse, eps)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, wd, bg, wse = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need) for t, need in zip((x, wd, bg), needs)]
+            y = conv3d(*leaves, padding=1)
+        dy, d_wse = _gated_core_bwd(y.detach(), wse, ct, ctx.eps)
+        wanted = [t for t, need in zip(leaves, needs) if need]
+        grads = iter(torch.autograd.grad(y, wanted, dy) if wanted else ())
+        return (*[next(grads) if need else None for need in needs],
+                d_wse if ctx.needs_input_grad[3] else None, None)
 
 
 def _wants_grad(*ts) -> bool:
@@ -400,12 +421,25 @@ def gated_norm_block(y, wse=None, eps: float = 1e-5):
     return _gated_norm_forward(y, wse, eps)
 
 
-def phased_gated_block(xs, w_all, b_all, wse=None, eps: float = 1e-5):
+def phased_gated_block(xs, w_all, b_all, wse=None, eps: float = 1e-5,
+                       ext_kernel: bool = False):
     """Phased s2d conv block: conv of the plain concat `xs` with the
-    phase-stacked kernel (list partial sums, padding 1), statistics over
-    the 8 phase windows of the ungathered output, then the phased
-    epilogue."""
+    phase-stacked kernel (list partial sums, padding 1; with `ext_kernel`
+    the `phased_conv_ungathered` kernel, accumulated in f32 and rounded
+    once), statistics over the 8 phase windows of the ungathered output,
+    then the phased epilogue."""
     xs = list(xs)
     if _wants_grad(*xs, w_all, b_all, wse):
-        return _PhasedGatedBlock.apply(w_all, b_all, wse, eps, *xs)
-    return _phased_forward(xs, w_all, b_all, wse, eps)
+        return _PhasedGatedBlock.apply(w_all, b_all, wse, eps, ext_kernel, *xs)
+    return _phased_forward(xs, w_all, b_all, wse, eps, ext_kernel)
+
+
+def dil2_gated_block(x, wd, bg, wse=None, eps: float = 1e-5):
+    """Dilation-2 s2d conv block as one dense conv with its sums: x (B, n,
+    n, n, C8), wd the block-diagonal (3, 3, 3, C8, C8o)
+    `s2d.dil2_dense_weight`, bg (C8o,); InstanceNorm per original channel
+    from the kernel's sums (var clamped at 0), then the gathered
+    epilogue."""
+    if _wants_grad(x, wd, bg, wse):
+        return _Dil2GatedBlock.apply(x, wd, bg, wse, eps)
+    return _dil2_forward(x, wd, bg, wse, eps)

@@ -1,13 +1,14 @@
 """Where the whole-volume runner's, or the train step's, time goes on the
 GPU.
 
-    python -m se_unet_airseg_tpu_torch.tools.profile_runner [--train | --conv-stats] [--trace PATH]
+    python -m se_unet_airseg_tpu_torch.tools.profile_runner [--train | --conv-stats | --conv-epi] [--trace PATH]
 
 Default: runs the main path of `chip_smoke.py` (full-width SE-UNet,
 random weights from seed 0, bf16, 128^3 tiles, step 64, batch 8) on a
 random int16 320x256x320 volume (the `bench.py` recipe): one warm-up
 volume, then one volume under `torch.profiler`. `--conv-stats`: the same
-under `SEUNetConfig(conv_stats=True)`.
+under `SEUNetConfig(conv_stats=True)`; `--conv-epi`: under
+`SEUNetConfig(conv_epi=True)`.
 
 `--train`: the stage-1 train step (`make_train_step`, full width, bf16,
 AdamW, remat off) on a random batch of 8 crops of 128^3 (the `bench.py`
@@ -49,7 +50,7 @@ from ..train import create_train_state, make_optimizer, make_train_step
 # the convolution patterns come before the GEMM ones
 _CATEGORIES = [
     ("epilogue kernels (forward, phased_normalize)", ("epilogue_kernel",)),
-    ("conv stats kernel (phased, dil-2)", ("conv_stats_kernel",)),
+    ("conv kernel (K8-K11: phased, dil-2, dense dil-2, ungathered)", ("conv_stats_kernel",)),
     ("pool backward kernel", ("pool_bwd_kernel",)),
     ("cuDNN layout transforms", ("tensortransform", "nhwctonchw", "nchwtonhwc")),
     ("convolution", ("fprop", "dgrad", "wgrad", "conv", "implicit")),
@@ -99,17 +100,18 @@ def _by_backward_node(events) -> dict:
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
-def _runner_call(conv_stats: bool):
+def _runner_call(conv_stats: bool, conv_epi: bool):
     """The whole-volume runner, warmed up: (call, description)."""
     cfg, model = get_model(seed=0, compute_dtype=torch.bfloat16)
-    cfg = dataclasses.replace(cfg, conv_stats=conv_stats)
+    cfg = dataclasses.replace(cfg, conv_stats=conv_stats, conv_epi=conv_epi)
     runner = SlidingWindowRunner(model, cfg, cube=128, step=64, batch=8)
     rng = np.random.default_rng(0)
     vol = (rng.random((320, 256, 320)) * 1400.0 + 24.0).astype(np.int16)
     kw = dict(h_thresh=0.5, l_thresh=0.35, hu_shift=-1024.0)
     runner.predict_trits(vol, **kw)
     return (lambda: runner.predict_trits(vol, **kw)), {"tiles": 48, "batch": 8,
-                                                        "conv_stats": conv_stats}
+                                                        "conv_stats": conv_stats,
+                                                        "conv_epi": conv_epi}
 
 
 def _train_call():
@@ -140,17 +142,19 @@ def main() -> int:
                     help="profile one stage-1 train step instead of one volume")
     ap.add_argument("--conv-stats", action="store_true",
                     help="profile the runner under SEUNetConfig(conv_stats=True)")
+    ap.add_argument("--conv-epi", action="store_true",
+                    help="profile the runner under SEUNetConfig(conv_epi=True)")
     ap.add_argument("--trace", type=Path, help="keep the chrome trace here")
     args = ap.parse_args()
-    if args.train and args.conv_stats:
-        ap.error("--conv-stats profiles the runner; it does not combine with --train")
+    if args.train + args.conv_stats + args.conv_epi > 1:
+        ap.error("--train, --conv-stats and --conv-epi each profile one path; pick one")
     if not torch.cuda.is_available():
         print("profile_runner: no CUDA device", file=sys.stderr)
         return 1
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    call, what = _train_call() if args.train else _runner_call(args.conv_stats)
+    call, what = _train_call() if args.train else _runner_call(args.conv_stats, args.conv_epi)
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

@@ -16,7 +16,7 @@ from se_unet_airseg_tpu_torch.models import SEUNet, SEUNetConfig, se_unet_apply_
 from se_unet_airseg_tpu_torch.models.se_unet import _leaves, _tree_map
 from se_unet_airseg_tpu_torch.ops import conv_stats as pcs
 from se_unet_airseg_tpu_torch.ops import epilogue_s2d as eps
-from se_unet_airseg_tpu_torch.ops import launch_counts, reset_launch_counts
+from se_unet_airseg_tpu_torch.ops import launch_counts, norm_leaky, reset_launch_counts
 from se_unet_airseg_tpu_torch.ops import s2d as ps2d
 from se_unet_airseg_tpu_torch.train import make_loss_fn
 
@@ -37,6 +37,11 @@ def dev():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _counts(**nonzero):
+    """Every kernel's launch count: `nonzero`, 0 for the others."""
+    return {k: nonzero.get(k, 0) for k in launch_counts}
 
 
 def _inputs(dev, dtype, b, m, c8, gates, xw=None, seed=0):
@@ -99,9 +104,7 @@ def test_apply_fast_on_card_matches_cpu(dev):
         ref = se_unet_apply_fast(model.params_tree(), x, cfg=cfg)
         reset_launch_counts()
         got = se_unet_apply_fast(model.to(dev).params_tree(), x.to(dev), cfg=cfg)
-    assert launch_counts == {"gathered_epilogue": 10, "phased_epilogue": 5,
-                             "phased_normalize": 0, "max_pool_s2d_bwd": 0,
-                             "phased_conv_stats": 0, "dil2_conv_stats": 0}
+    assert launch_counts == _counts(gathered_epilogue=10, phased_epilogue=5)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g.cpu(), r, rtol=1e-3, atol=1e-4)
 
@@ -165,8 +168,8 @@ def test_train_grads_on_card_match_cpu(dev):
             torch.zeros(t.shape) if t.grad is None else t.grad.cpu() for t in _leaves(leaves)])
     (l_cpu, n_cpu, g_cpu), (l_gpu, n_gpu, g_gpu) = out["cpu"], out[str(dev)]
     assert not any(n_cpu.values())
-    assert n_gpu == {"gathered_epilogue": 10, "phased_epilogue": 5, "phased_normalize": 5,
-                     "max_pool_s2d_bwd": 2, "phased_conv_stats": 0, "dil2_conv_stats": 0}
+    assert n_gpu == _counts(gathered_epilogue=10, phased_epilogue=5, phased_normalize=5,
+                            max_pool_s2d_bwd=2)
     torch.testing.assert_close(l_gpu, l_cpu, rtol=1e-5, atol=1e-6)
     # each leaf also within 2e-2 of its own norm (LEAF_RTOL_PORT,
     # tests/test_torch_train.py)
@@ -256,8 +259,119 @@ def test_apply_fast_conv_stats_on_card_matches_cpu(dev):
         ref = se_unet_apply_fast(model.params_tree(), x, cfg=cfg)
         reset_launch_counts()
         got = se_unet_apply_fast(model.to(dev).params_tree(), x.to(dev), cfg=cfg)
-    assert launch_counts == {"gathered_epilogue": 7, "phased_epilogue": 0,
-                             "phased_normalize": 0, "max_pool_s2d_bwd": 0,
-                             "phased_conv_stats": 5, "dil2_conv_stats": 3}
+    assert launch_counts == _counts(gathered_epilogue=7, phased_conv_stats=5,
+                                    dil2_conv_stats=3)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g.cpu(), r, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,c8,c8o", [(2, 8, 128, 128), (1, 5, 64, 64), (3, 4, 32, 192)])
+def test_dil2_dense_conv_stats_kernel_matches_plain(dev, dtype, b, n, c8, c8o):
+    """Any dense kernel; n = 5 is no multiple of the 128-voxel tile."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn((b, n, n, n, c8), generator=g, device=dev).to(dtype)
+    wd = (0.05 * torch.randn((3, 3, 3, c8, c8o), generator=g, device=dev)).to(dtype)
+    bg = 0.1 * torch.randn((c8o,), generator=g, device=dev)
+    reset_launch_counts()
+    (y, s1, s2) = pcs.dil2_dense_conv_stats(x, wd, bg)
+    torch.cuda.synchronize()
+    assert launch_counts == _counts(dil2_dense_conv_stats=1)
+    ry, r1, r2 = pcs.dil2_dense_conv_stats_plain(x, wd, bg)
+    mag = pcs.dil2_dense_conv_stats_plain(x.abs(), wd.abs(), 0 * bg)[0]
+    _ulp_close(y, ry, mag.float())
+    ryf = ry.float()
+    for s, rs, m in ((s1, r1, ryf.abs()), (s2, r2, ryf.square())):
+        assert s.dtype == torch.float32
+        lim = 1e-4 * m.sum(dim=(1, 2, 3)) + 1e-6
+        assert bool(((s - rs).abs() <= lim).all()), float((s - rs).abs().max())
+
+
+def _ulp_close(y, ry, mag):
+    """y within one bf16 ulp (1e-5 relative in f32) of the plain version,
+    plus 2^-18 of the sum of the |terms| `mag`: both round an f32 sum of
+    up to 27 x 256 products once, summed in another order (see
+    `_conv_stats_close`)."""
+    assert y.dtype == ry.dtype and y.shape == ry.shape
+    r = ry.float()
+    ulp = torch.ldexp(torch.ones_like(r), torch.frexp(r).exponent - 8) \
+        if y.dtype == torch.bfloat16 else 1e-5 * r.abs()
+    d = (y.float() - r).abs()
+    assert bool((d <= ulp + 2.0 ** -18 * mag).all()), float(d.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,cis,c8o,bias", [(2, 8, (64,), 128, True),
+                                              (1, 5, (64, 64), 128, True),
+                                              (2, 4, (128,), 512, False),
+                                              (3, 6, (32, 96), 64, False)])
+def test_phased_conv_ungathered_kernel_matches_plain(dev, dtype, b, n, cis, c8o, bias):
+    """One and two inputs, with and without bias; (n+1)^3 = 216 and 125
+    are no multiple of the 128-voxel tile."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    xs = [torch.randn((b, n, n, n, c), generator=g, device=dev).to(dtype) for c in cis]
+    w_all = (0.05 * torch.randn((2, 2, 2, sum(cis), c8o), generator=g, device=dev)).to(dtype)
+    b_all = 0.1 * torch.randn((c8o,), generator=g, device=dev) if bias else None
+    reset_launch_counts()
+    got = pcs.phased_conv_ungathered(xs, w_all, b_all)
+    torch.cuda.synchronize()
+    assert launch_counts == _counts(phased_conv_ungathered=1)
+    assert got.shape == (b, n + 1, n + 1, n + 1, c8o)
+    mag = pcs.phased_conv_ungathered_plain([t.abs() for t in xs], w_all.abs())
+    _ulp_close(got, pcs.phased_conv_ungathered_plain(xs, w_all, b_all), mag.float())
+
+
+def test_conv_epi_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    x = torch.randn((1, 4, 4, 4, 64), device=dev)
+    with pytest.raises(ValueError):  # C8o = 32
+        pcs.dil2_dense_conv_stats(x, torch.randn((3, 3, 3, 64, 32), device=dev),
+                                  torch.zeros(32, device=dev))
+    with pytest.raises(ValueError):  # three inputs
+        pcs.phased_conv_ungathered([x, x, x], torch.randn((2, 2, 2, 192, 64), device=dev))
+    with pytest.raises(TypeError):
+        pcs.phased_conv_ungathered(x.half(), torch.randn((2, 2, 2, 64, 64), device=dev).half())
+    with pytest.raises(TypeError):
+        norm_leaky.instance_norm_leaky(torch.randn((1, 8, 4), device=dev).half())
+
+
+def test_apply_fast_conv_epi_on_card_matches_cpu(dev):
+    """The conv_epi forward in float32 on the card (kernels) against the
+    CPU (plain versions), with its launches: 3 dense dil-2 conv stats, 5
+    ungathered phased convs, 10 gathered and 5 phased epilogues."""
+    cfg = SEUNetConfig(conv_epi=True)
+    model = SEUNet(cfg, generator=torch.Generator().manual_seed(0))
+    x = torch.randn((2, 32, 32, 32, 2), generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        ref = se_unet_apply_fast(model.params_tree(), x, cfg=cfg)
+        reset_launch_counts()
+        got = se_unet_apply_fast(model.to(dev).params_tree(), x.to(dev), cfg=cfg)
+    assert launch_counts == _counts(gathered_epilogue=10, phased_epilogue=5,
+                                    dil2_dense_conv_stats=3, phased_conv_ungathered=5)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.cpu(), r, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,c", [(1, 4096, 256), (8, 8192, 32), (2, 1000, 40), (1, 7, 3)])
+def test_instance_norm_leaky_kernels_match_plain(dev, dtype, b, s, c):
+    """Forward and backward against their plain versions; c = 40 and 3
+    leave a channel tile partly empty. bf16: one ulp where the reordered
+    f32 statistics move the rounding."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = (1.5 * torch.randn((b, s, c), generator=g, device=dev) + 0.3).to(dtype)
+    ct = torch.randn((b, s, c), generator=g, device=dev).to(dtype)
+    reset_launch_counts()
+    y, rstd = norm_leaky._norm_leaky_fwd(x)
+    dx = norm_leaky._norm_leaky_bwd(ct, y, rstd)
+    torch.cuda.synchronize()
+    assert launch_counts == _counts(instance_norm_leaky_fwd=1, instance_norm_leaky_bwd=1)
+    ry, rr = norm_leaky.instance_norm_leaky_plain(x)
+    torch.testing.assert_close(rstd, rr, rtol=1e-5, atol=0)
+    rdx = norm_leaky.instance_norm_leaky_bwd_plain(ct, y, rstd)
+    for got, ref in ((y, ry), (dx, rdx)):
+        if dtype == torch.bfloat16:
+            r = ref.float()
+            ulp = torch.ldexp(torch.ones_like(r), torch.frexp(r).exponent - 8)
+            assert bool(((got.float() - r).abs() <= ulp + 1e-6).all())
+        else:
+            torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
