@@ -7,8 +7,10 @@ Needs one CUDA card and nvcc; exits non-zero without them. Phases:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off for
    the float32 phases;
-2. build: nvcc builds the kernels from the four sources under csrc/,
-   one nvcc per source, started together, into one library;
+2. build: nvcc builds the kernels from the five sources under csrc/,
+   one nvcc per source, started together, into one library; the line
+   reports ptxas's registers and spills of every kernel and, for the
+   wgmma kernel of `phased_conv_stats`, its dynamic shared memory;
 3. kernels: the two epilogue kernels against their plain PyTorch
    versions at the 15 call shapes of the inference path (batch 8, bf16),
    with their time (CUDA events, median of 20 launches), the plain
@@ -38,9 +40,10 @@ Needs one CUDA card and nvcc; exits non-zero without them. Phases:
    lumen label): one warm-up step, then TRAIN_STEPS timed steps; the
    launches must read 10/5/5/2 per step, every loss must be finite and
    the batch's loss under one fixed set of DropLayer draws must fall;
-9. conv_stats kernels: `phased_conv_stats` at the 5 phased and
-   `dil2_conv_stats` at the 3 dil-2 call shapes of the conv_stats
-   configuration (batch 8, bf16) against their plain versions: y within
+9. conv_stats kernels: `phased_conv_stats` (the wgmma kernel, `design`
+   "wgmma" on its lines) at the 5 phased and `dil2_conv_stats` at the 3
+   dil-2 call shapes of the conv_stats configuration (batch 8, bf16)
+   against their plain versions: y within
    one bf16 ulp (plus 2^-18 of the sum of |terms|, the f32 reordering
    floor near zero), s1/s2 within 1e-4 of each channel's sum of |y| and
    y^2; with ms, the plain version's ms, the bound (bf16 FLOPs at
@@ -150,6 +153,7 @@ CE_DIL2 = [(blk, n, 8 * ci, 8 * co) for blk, n, ci, co in CS_DIL2]
 # the s2d form of ec3's output
 NL_SHAPES = [("docstring", (1, 64 ** 3, 256)), ("ec3_s2d", (BATCH, 64 ** 3 * 8, 32))]
 CS_SRC = "se_unet_airseg_tpu_torch/csrc/conv_stats.cu"
+WGMMA_SRC = "se_unet_airseg_tpu_torch/csrc/phased_conv_wgmma.cu"
 NL_SRC = "se_unet_airseg_tpu_torch/csrc/norm_leaky.cu"
 EPI_SRC = "se_unet_airseg_tpu_torch/csrc/epilogue.cu"
 KERNELS = {  # name: (the Pallas functions it replaces, source)
@@ -160,7 +164,7 @@ KERNELS = {  # name: (the Pallas functions it replaces, source)
     "phased_normalize": ("se_unet_airseg_tpu/ops/pallas_s2d.py:581", EPI_SRC),
     "max_pool_s2d_bwd": ("se_unet_airseg_tpu/ops/pallas_s2d.py:671",
                          "se_unet_airseg_tpu_torch/csrc/pool_s2d.cu"),
-    "phased_conv_stats": ("se_unet_airseg_tpu/ops/pallas_s2d.py:1081", CS_SRC),
+    "phased_conv_stats": ("se_unet_airseg_tpu/ops/pallas_s2d.py:1081", WGMMA_SRC),
     "dil2_conv_stats": ("se_unet_airseg_tpu/ops/pallas_s2d.py:404", CS_SRC),
     "dil2_dense_conv_stats": ("se_unet_airseg_tpu/ops/pallas_s2d.py:1714", CS_SRC),
     "phased_conv_ungathered": ("se_unet_airseg_tpu/ops/pallas_s2d.py:2179; "
@@ -169,6 +173,20 @@ KERNELS = {  # name: (the Pallas functions it replaces, source)
     "instance_norm_leaky_bwd": ("se_unet_airseg_tpu/ops/pallas_norm.py:168", NL_SRC),
 }
 EPILOGUE_TABLES = {"gathered_epilogue": GATHERED, "phased_epilogue": PHASED}
+
+
+def ptxas_report(log: str) -> dict:
+    """ptxas's register and spill lines (and any line on wgmma) of each
+    kernel in an `nvcc -Xptxas -v` log, by mangled kernel name."""
+    report, name = {}, None
+    for ln in log.splitlines():
+        marks = [m for m in ("Compiling entry function '", "Function properties for ")
+                 if m in ln]
+        if marks:
+            name = ln.split(marks[0], 1)[1].split("'")[0].strip()
+        elif name and ("registers" in ln or "spill" in ln or "wgmma" in ln):
+            report.setdefault(name, []).append(ln.strip())
+    return report
 
 
 def counts(**nonzero) -> dict:
@@ -509,13 +527,15 @@ def cs_bound(flops: float, nbytes: float):
 
 
 def conv_stats_call(name, block, shape, kernel, plain, mag, library, flops, nbytes, agg,
-                    library_label="cuDNN bf16 conv only: no phase gather, no sums", **extra):
+                    library_label="cuDNN bf16 conv only: no phase gather, no sums",
+                    design=None, **extra):
     """Hold one conv call against its plain version, time it, and emit its
     line: y within one bf16 ulp plus 2^-18 of the sum of |terms| `mag`
     (the two sum in f32 in another order, which near zero moves y by more
     than an ulp); s1, s2, where the kernel returns them, within 1e-4 of
     each channel's sum of |y| and of y^2. `extra`: more timed calls on the
-    same inputs, name -> fn, reported as name_ms."""
+    same inputs, name -> fn, reported as name_ms; `design` names the
+    kernel's design on the line."""
     got, ref = kernel(), plain()
     got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
     y, ry = got[0], ref[0]
@@ -545,6 +565,7 @@ def conv_stats_call(name, block, shape, kernel, plain, mag, library, flops, nbyt
             "plain_ms": cuda_ms(plain), "library_ms": cuda_ms(library),
             "library": library_label, "max_abs_diff": err, "frac_elements_differing": frac,
             **({"sums_err_of_limit": s_err} if has_sums else {}),
+            **({"design": design} if design else {}),
             **{f"{k}_ms": cuda_ms(fn) for k, fn in extra.items()}}
     emit(line)
     add_call(agg, line)
@@ -578,7 +599,7 @@ def conv_stats_kernel_phase():
             lambda: conv3d(xcat, w5, padding=1),
             2 * vox * 8 * cin * 8 * co,
             2 * (vox * cin + vox * 8 * co + w.numel()) + 4 * (b.numel() + 2 * BATCH * 8 * co),
-            summary["phased_conv_stats"])
+            summary["phased_conv_stats"], design="wgmma")
         del xs, w, b, xcat, w5
         torch.cuda.empty_cache()
     for block, n, ci, co in CS_DIL2:
@@ -968,10 +989,14 @@ def main() -> int:
 
     t0 = time.perf_counter()
     lib = build_kernels()
-    emit({"build": {"seconds": time.perf_counter() - t0, "library": lib.path.name,
-                    "nvcc_seconds": lib.build_seconds,
-                    "ptxas": [ln for ln in lib.build_log.splitlines()
-                              if "registers" in ln or "spill" in ln]}})
+    ptxas = ptxas_report(lib.build_log)
+    emit({"build": {
+        "seconds": time.perf_counter() - t0, "library": lib.path.name,
+        "nvcc_seconds": lib.build_seconds, "ptxas": ptxas,
+        "phased_conv_wgmma": {
+            "dynamic_smem_bytes": {f"8Co={8 * co}": lib.lib.airseg_phased_conv_stats_wgmma_smem(co)
+                                   for co in (8, 16, 32)},
+            "ptxas": {k: v for k, v in ptxas.items() if "phased_conv_wgmma" in k}}}})
 
     summary = kernel_phase()
     summary.update(train_kernel_phase())

@@ -7,6 +7,7 @@
 //     written as a 2^3 block conv whose output phase q = (a, b, c) reads
 //     x at the block offset (a + sz - 1, b + sy - 1, c + sx - 1) for tap
 //     s = (sz, sy, sx); y[..., q*Co + o] = bias + sum_s sum_c x * w_all[s, c, q*Co + o];
+//     float32 only here: the bf16 form is phased_conv_wgmma.cu;
 //   dil-2 conv stats: dil2_conv_stats (_pallas_dil2_forward, _dil2_kernel):
 //     the dilation-2 3^3 conv on the s2d fold as 8 independent dil-1 convs,
 //     one per sub-position p, all with the same (27*Ci, Co) kernel;
@@ -43,8 +44,9 @@
 // simple one: the groups of one voxel tile run as neighbouring blocks, so
 // x comes from device memory about once, and each x vector is read into
 // shared memory once per (group, column tile, tap) that uses it, mostly
-// from L2. wgmma, TMA, one block per tile for all 8 phases, and skipping
-// the block-diagonal zeros of the dense dil-2 weight are later work.
+// from L2. wgmma (phased_conv_wgmma.cu has it for the bf16 phased conv
+// stats), TMA, and skipping the block-diagonal zeros of the dense dil-2
+// weight are later work.
 // Offsets are 64-bit. The kernels allocate nothing, launch on the caller's
 // stream and report launch errors through cudaGetLastError().
 
@@ -59,9 +61,7 @@ constexpr int kBM = 128;       // voxels per block (32 per warp)
 constexpr int kStages = 3;
 
 // the tap geometry: which input voxel a tap of a group reads
-// kPhasedExt: the phased conv stats (bf16) as kExt's one-group GEMM over
-// the (n+1)^3 grid, each row of phase q's columns scattered to y[v' - q]
-enum Form { kPhased, kDil2, kExt, kPhasedExt };
+enum Form { kPhased, kDil2, kExt };
 __host__ __device__ constexpr int taps(int form) { return form == kDil2 ? 27 : 8; }
 
 struct Args {
@@ -103,7 +103,7 @@ __device__ __forceinline__ void tap_offset(int g, int t, int& dz, int& dy, int& 
     dz = ((g >> 2) & 1) + ((t >> 2) & 1) - 1;
     dy = ((g >> 1) & 1) + ((t >> 1) & 1) - 1;
     dx = (g & 1) + (t & 1) - 1;
-  } else if (kForm == kExt || kForm == kPhasedExt) {  // output voxel v' reads v' + s - 1
+  } else if (kForm == kExt) {  // output voxel v' reads v' + s - 1
     dz = ((t >> 2) & 1) - 1;
     dy = ((t >> 1) & 1) - 1;
     dx = (t & 1) - 1;
@@ -381,18 +381,9 @@ __global__ void __launch_bounds__(kThreads) conv_stats_kernel(const Args p) {
     const int gc = ct * BN + col;
     const int64_t v = vox0 + row;
     if (gc >= p.co || v >= m3) return;  // co % 8 == 0: the pair is in or out
-    int64_t dst = b * m3 + v;
-    if (kForm == kPhasedExt) {  // phase q = (a, b, c) of the pair: row v' lands on v' - q
-      const int q = gc / (p.co / 8);
-      const int vz = static_cast<int>(v / (static_cast<int64_t>(m) * m));
-      const int rem = static_cast<int>(v - static_cast<int64_t>(vz) * m * m);
-      const int z = vz - ((q >> 2) & 1), yy = rem / m - ((q >> 1) & 1), x = rem % m - (q & 1);
-      if (z < 0 || z >= p.n || yy < 0 || yy >= p.n || x < 0 || x >= p.n) return;
-      dst = b * n3 + (static_cast<int64_t>(z) * p.n + yy) * p.n + x;
-    }
     v0 += p.bias[g * p.bcol + gc];
     v1 += p.bias[g * p.bcol + gc + 1];
-    store2(y + dst * ldy + g * p.co + gc, v0, v1);
+    store2(y + (b * m3 + v) * ldy + g * p.co + gc, v0, v1);
     if (sums) {
       core.c1[s] += v0;
       core.c1[s + 1] += v1;
@@ -459,16 +450,10 @@ extern "C" int airseg_phased_conv_stats(int dtype, const void* x0, int c0, const
                                         const void* w_all, const float* b_all, void* y,
                                         float* s1, float* s2, long long batch, int n, int co,
                                         void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {  // one group of all 8Co columns over the (n+1)^3 grid, scattered
-    Args a{x0, c1 ? x1 : x0, c0, c1, 0, c0 + c1, w_all, 8 * co, 0, b_all, 0, y, s1, s2,
-           n, n + 1, 1, 8 * co};
-    return launch<__nv_bfloat16, kPhasedExt>(a, batch, s);
-  }
-  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);  // bf16: phased_conv_wgmma.cu
   Args a{x0, c1 ? x1 : x0, c0, c1, 0, c0 + c1, w_all, 8 * co, co, b_all, co, y, s1, s2,
          n, n, 8, co};
-  return launch<float, kPhased>(a, batch, s);
+  return launch<float, kPhased>(a, batch, static_cast<cudaStream_t>(stream));
 }
 
 // x (B, n, n, n, 8Ci); w (3, 3, 3, Ci, Co) in x's type; b (Co,) f32.

@@ -4,7 +4,10 @@
 Counterparts of the JAX package's `phased_conv_stats`, `dil2_conv_stats`,
 `dil2_conv_stats_bm` and `phased_conv_ext_bm` (`ops/pallas_s2d.py:1081`,
 `:404`, `:1714`, `:2179`). All four are one CUDA kernel here
-(`csrc/conv_stats.cu`, built and bound by `ops/cuda_lib.py`); the three
+(`csrc/conv_stats.cu`, built and bound by `ops/cuda_lib.py`), except the
+bf16 `phased_conv_stats`: a wgmma GEMM over the (n+1)^3 grid with the
+phase gather in its epilogue (`csrc/phased_conv_wgmma.cu`; its rule is
+`phase_scatter_plain`), which reads the weight K-major; the three
 statistics forms return the conv output y together with its per-lane sums
 s1 = sum(y) and s2 = sum(y^2) over the voxels, f32, taken before y is
 rounded:
@@ -61,6 +64,29 @@ def phased_conv_stats_plain(xs, w_all, b_all):
     w = w_all.reshape(2, 2, 2, *w_all.shape[1:]).to(acc)
     y_ext = phased_conv_ext([t.to(acc) for t in xs], w, b_all.to(acc))
     return _with_sums(torch.cat(phase_windows(y_ext, n), dim=-1), dt)
+
+
+def phase_scatter_plain(y_ext, n: int, co: int):
+    """The bf16 `phased_conv_stats` kernel's epilogue rule, row by row:
+    row v' of the ungathered output y_ext (B, n+1, n+1, n+1, 8Co), column
+    j of phase q = j // co = (a, b, c), lands on y[v' - q] where every
+    axis of v' - q lies in [0, n), and only those values enter the sums.
+    Returns y (B, n^3, 8Co) in y_ext's dtype and the f32 sums s1, s2
+    (B, 8Co); the same function as the 8 phase windows of y_ext."""
+    b, m, c8 = y_ext.shape[0], n + 1, 8 * co
+    v = torch.arange(m ** 3)
+    q = torch.arange(c8) // co
+    dst = []
+    for axis, bit in ((v // (m * m), 2), ((v // m) % m, 1), (v % m, 0)):
+        dst.append(axis[:, None] - ((q[None, :] >> bit) & 1))  # (m^3, 8Co)
+    ok = torch.stack([(d >= 0) & (d < n) for d in dst]).all(0)
+    rows = (dst[0] * n + dst[1]) * n + dst[2]
+    cols = torch.arange(c8).expand_as(rows)
+    ye = y_ext.reshape(b, m ** 3, c8).float()
+    y = torch.zeros((b, n ** 3, c8), dtype=y_ext.dtype)
+    y[:, rows[ok], cols[ok]] = ye[:, ok].to(y_ext.dtype)
+    kept = ye * ok
+    return y, kept.sum(1), torch.square(kept).sum(1)
 
 
 def dil2_conv_stats_plain(x, w, b):
@@ -145,15 +171,27 @@ def _phased_conv_stats_fwd(xs, w_all, b_all):
     cin, c8 = sum(t.shape[-1] for t in xs), w_all.shape[-1]
     if c8 % 64:
         raise ValueError(f"8Co must be a multiple of 64, got {c8}")
+    bf16 = dt == torch.bfloat16
+    if bf16 and (any(t.shape[-1] % 64 for t in xs) or (c8 > 256 and c8 % 256) or c8 == 192):
+        raise ValueError("the bf16 kernel takes inputs of a multiple of 64 lanes each and "
+                         f"8Co of 64, 128 or a multiple of 256, got {[t.shape[-1] for t in xs]} "
+                         f"and {c8}")
     w_all = _check_weight(w_all, dt, dev, (8, cin, c8), "w_all")
     b_all = _check_bias(b_all, c8, dev, "b_all")
     y, s1, s2 = _outputs(xs[0], b, n, c8)
     x1 = xs[1] if len(xs) == 2 else None
+    x_args = (xs[0].data_ptr(), xs[0].shape[-1], None if x1 is None else x1.data_ptr(),
+              0 if x1 is None else x1.shape[-1])
+    out_args = (b_all.data_ptr(), y.data_ptr(), s1.data_ptr(), s2.data_ptr(), b, n, c8 // 8,
+                _stream(y))
     with torch.cuda.device(dev):
-        launch("airseg_phased_conv_stats", "phased_conv_stats", _DTYPE_CODE[dt],
-               xs[0].data_ptr(), xs[0].shape[-1], None if x1 is None else x1.data_ptr(),
-               0 if x1 is None else x1.shape[-1], w_all.data_ptr(), b_all.data_ptr(),
-               y.data_ptr(), s1.data_ptr(), s2.data_ptr(), b, n, c8 // 8, _stream(y))
+        if bf16:  # wgmma reads the weight K-major: (8Co, 8 Cin)
+            wt = w_all.permute(2, 0, 1).reshape(c8, 8 * cin).contiguous()
+            launch("airseg_phased_conv_stats_wgmma", "phased_conv_stats", *x_args,
+                   wt.data_ptr(), *out_args)
+        else:
+            launch("airseg_phased_conv_stats", "phased_conv_stats", _DTYPE_CODE[dt], *x_args,
+                   w_all.data_ptr(), *out_args)
     return y, s1, s2
 
 

@@ -202,9 +202,14 @@ def _conv_stats_close(got, ref, mag):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,n,cis,co", [(2, 8, (64,), 8), (1, 5, (64, 64), 16),
-                                        (2, 4, (128,), 64)])
+                                        (2, 4, (128,), 64), (3, 5, (64, 192), 32),
+                                        (1, 33, (128,), 8), (1, 33, (64,), 16),
+                                        (2, 6, (64, 64), 64)])
 def test_phased_conv_stats_kernel_matches_plain(dev, dtype, b, n, cis, co):
-    """One input and a two-input plain concat; n = 5 is no multiple of 8."""
+    """One input and a two-input plain concat, of equal and of unequal
+    widths (64 + 192); 8Co of 64, 128, 256 and 512 (two column tiles of
+    the bf16 kernel); n = 5 and 33, whose (n+1)^3 grids end in a ragged
+    128-row tile; batch 3."""
     g = torch.Generator(device=dev).manual_seed(7)
     xs = [torch.randn((b, n, n, n, c), generator=g, device=dev).to(dtype) for c in cis]
     w_all = (0.05 * torch.randn((8, sum(cis), 8 * co), generator=g, device=dev)).to(dtype)
@@ -243,6 +248,15 @@ def test_conv_stats_wrappers_raise_on_what_the_kernel_does_not_take(dev):
         pcs.phased_conv_stats(x, w_all.to(torch.bfloat16), b_all)
     with pytest.raises(ValueError):
         pcs.phased_conv_stats([x, x, x], torch.randn((8, 192, 64), device=dev), b_all)
+    bf = torch.bfloat16
+    x32 = x[..., :32].contiguous().to(bf)
+    with pytest.raises(ValueError):  # bf16: Cin % 64 != 0
+        pcs.phased_conv_stats(x32, torch.randn((8, 32, 64), device=dev).to(bf), b_all)
+    with pytest.raises(ValueError):  # bf16: a 32 + 32 concat, each input % 64 != 0
+        pcs.phased_conv_stats([x32, x32], w_all.to(bf), b_all)
+    with pytest.raises(ValueError):  # bf16: 8Co = 192
+        pcs.phased_conv_stats(x.to(bf), torch.randn((8, 64, 192), device=dev).to(bf),
+                              torch.zeros(192, device=dev))
     with pytest.raises(ValueError):  # Co = 4
         pcs.dil2_conv_stats(x, torch.randn((3, 3, 3, 8, 4), device=dev),
                             torch.zeros(4, device=dev))
