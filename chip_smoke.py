@@ -994,8 +994,9 @@ def main() -> int:
         "seconds": time.perf_counter() - t0, "library": lib.path.name,
         "nvcc_seconds": lib.build_seconds, "ptxas": ptxas,
         "phased_conv_wgmma": {
-            "dynamic_smem_bytes": {f"8Co={8 * co}": lib.lib.airseg_phased_conv_stats_wgmma_smem(co)
-                                   for co in (8, 16, 32)},
+            "dynamic_smem_bytes": {
+                f"8Co={8 * co}": lib.lib.airseg_phased_conv_stats_wgmma_smem(co)
+                for co in (8, 16, 32)},
             "ptxas": {k: v for k, v in ptxas.items() if "phased_conv_wgmma" in k}}}})
 
     summary = kernel_phase()

@@ -22,8 +22,8 @@
 // at most about 94% of its bound.
 //
 // Bound: operations. Per batch of eight 128^3 tiles the model's five calls
-// do 8.5 TFLOP (2 B n^3 8Cin 8Co) and move about 3 GB: 8.616 ms at the
-// H100's 989 bf16 TFLOP/s.
+// do 8.52 TFLOP (2 B n^3 8Cin 8Co) and move 6.3 GB, 1350 flops per byte:
+// 8.616 ms at the H100's 989 bf16 TFLOP/s.
 //
 // Tile. A block of two warpgroups (256 threads) computes BM = 128 voxels of
 // the (n+1)^3 grid of one batch entry (each warpgroup one m64 row slab) by

@@ -50,7 +50,8 @@ from ..train import create_train_state, make_optimizer, make_train_step
 # the convolution patterns come before the GEMM ones
 _CATEGORIES = [
     ("epilogue kernels (forward, phased_normalize)", ("epilogue_kernel",)),
-    ("conv kernel (K8-K11: phased, dil-2, dense dil-2, ungathered)", ("conv_stats_kernel",)),
+    ("wgmma conv kernel (K8 in bf16)", ("phased_conv_wgmma_kernel",)),
+    ("conv kernel (K8 in f32, K9-K11: dil-2, dense dil-2, ungathered)", ("conv_stats_kernel",)),
     ("pool backward kernel", ("pool_bwd_kernel",)),
     ("cuDNN layout transforms", ("tensortransform", "nhwctonchw", "nchwtonhwc")),
     ("convolution", ("fprop", "dgrad", "wgrad", "conv", "implicit")),
