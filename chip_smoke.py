@@ -10,7 +10,9 @@ Needs one CUDA card and nvcc; exits non-zero without them. Phases:
 2. build: nvcc builds the kernels from the five sources under csrc/,
    one nvcc per source, started together, into one library; the line
    reports ptxas's registers and spills of every kernel and, for the
-   wgmma kernel of `phased_conv_stats`, its dynamic shared memory;
+   wgmma kernels of csrc/conv_wgmma.cu (the bf16 `phased_conv_stats`,
+   `dil2_dense_conv_stats` and `phased_conv_ungathered`), their registers,
+   spills and dynamic shared memory per column tile BN;
 3. kernels: the two epilogue kernels against their plain PyTorch
    versions at the 15 call shapes of the inference path (batch 8, bf16),
    with their time (CUDA events, median of 20 launches), the plain
@@ -61,12 +63,16 @@ Needs one CUDA card and nvcc; exits non-zero without them. Phases:
    epilogues per tile batch;
 12. conv_epi kernels: `dil2_dense_conv_stats` at the 3 dil-2 and
    `phased_conv_ungathered` at the 5 phased call shapes of the
-   conv-to-epilogue configuration (batch 8, bf16; the dense form on the
-   block-diagonal lift the model passes) against their plain versions,
-   with the checks of phase 9; `library_ms` is cuDNN's bf16 conv of the
-   same function (the dense block-diagonal conv; the default path's
-   per-input phased conv); the dense lines also time K9 on the same
-   block;
+   conv-to-epilogue configuration (batch 8, bf16; both the wgmma kernel,
+   `design` "wgmma"; the dense form on the block-diagonal lift the model
+   passes, with its column tile BN and the share of k-step tiles it
+   executes) against their plain versions, with the checks of phase 9;
+   the dense form's bound counts the weight's nonzeros (`bound_dense_ms`:
+   every element); `library_ms` is cuDNN's bf16 conv of the same function
+   (the dense block-diagonal conv; the default path's per-input phased
+   conv); the dense lines also time K9 on the same block. One more dense
+   line, at ec5's shape on a dense random weight, holds the any-weight
+   path (not in the kernel's summary: the model does not run it);
 13. conv_epi parity: as phase 10, under `SEUNetConfig(conv_epi=True)`;
 14. conv_epi path: the runner of phase 6 under `conv_epi`, one warm-up
    volume and CE_VOLUMES timed volumes; the launches must read 3
@@ -90,6 +96,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -153,7 +160,7 @@ CE_DIL2 = [(blk, n, 8 * ci, 8 * co) for blk, n, ci, co in CS_DIL2]
 # the s2d form of ec3's output
 NL_SHAPES = [("docstring", (1, 64 ** 3, 256)), ("ec3_s2d", (BATCH, 64 ** 3 * 8, 32))]
 CS_SRC = "se_unet_airseg_tpu_torch/csrc/conv_stats.cu"
-WGMMA_SRC = "se_unet_airseg_tpu_torch/csrc/phased_conv_wgmma.cu"
+WGMMA_SRC = "se_unet_airseg_tpu_torch/csrc/conv_wgmma.cu"
 NL_SRC = "se_unet_airseg_tpu_torch/csrc/norm_leaky.cu"
 EPI_SRC = "se_unet_airseg_tpu_torch/csrc/epilogue.cu"
 KERNELS = {  # name: (the Pallas functions it replaces, source)
@@ -166,9 +173,9 @@ KERNELS = {  # name: (the Pallas functions it replaces, source)
                          "se_unet_airseg_tpu_torch/csrc/pool_s2d.cu"),
     "phased_conv_stats": ("se_unet_airseg_tpu/ops/pallas_s2d.py:1081", WGMMA_SRC),
     "dil2_conv_stats": ("se_unet_airseg_tpu/ops/pallas_s2d.py:404", CS_SRC),
-    "dil2_dense_conv_stats": ("se_unet_airseg_tpu/ops/pallas_s2d.py:1714", CS_SRC),
+    "dil2_dense_conv_stats": ("se_unet_airseg_tpu/ops/pallas_s2d.py:1714", WGMMA_SRC),
     "phased_conv_ungathered": ("se_unet_airseg_tpu/ops/pallas_s2d.py:2179; "
-                               "se_unet_airseg_tpu/ops/pallas_s2d.py:2131", CS_SRC),
+                               "se_unet_airseg_tpu/ops/pallas_s2d.py:2131", WGMMA_SRC),
     "instance_norm_leaky_fwd": ("se_unet_airseg_tpu/ops/pallas_norm.py:132", NL_SRC),
     "instance_norm_leaky_bwd": ("se_unet_airseg_tpu/ops/pallas_norm.py:168", NL_SRC),
 }
@@ -187,6 +194,18 @@ def ptxas_report(log: str) -> dict:
         elif name and ("registers" in ln or "spill" in ln or "wgmma" in ln):
             report.setdefault(name, []).append(ln.strip())
     return report
+
+
+def wgmma_report(ptxas: dict) -> dict:
+    """The wgmma kernels' ptxas lines, keyed kernel<BN>."""
+    out = {}
+    for name, lines in ptxas.items():
+        for kernel in ("phased_conv_stats_wgmma", "phased_conv_ungathered_wgmma",
+                       "dil2_dense_conv_stats_wgmma"):
+            m = re.search(kernel + r"ILi(\d+)E", name)
+            if m:
+                out[f"{kernel}<{m.group(1)}>"] = lines
+    return out
 
 
 def counts(**nonzero) -> dict:
@@ -528,14 +547,15 @@ def cs_bound(flops: float, nbytes: float):
 
 def conv_stats_call(name, block, shape, kernel, plain, mag, library, flops, nbytes, agg,
                     library_label="cuDNN bf16 conv only: no phase gather, no sums",
-                    design=None, **extra):
+                    design=None, fields=None, **extra):
     """Hold one conv call against its plain version, time it, and emit its
     line: y within one bf16 ulp plus 2^-18 of the sum of |terms| `mag`
     (the two sum in f32 in another order, which near zero moves y by more
     than an ulp); s1, s2, where the kernel returns them, within 1e-4 of
     each channel's sum of |y| and of y^2. `extra`: more timed calls on the
     same inputs, name -> fn, reported as name_ms; `design` names the
-    kernel's design on the line."""
+    kernel's design on the line; `fields` are more entries of the line.
+    The line is summed into `agg` unless that is None."""
     got, ref = kernel(), plain()
     got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
     y, ry = got[0], ref[0]
@@ -565,10 +585,11 @@ def conv_stats_call(name, block, shape, kernel, plain, mag, library, flops, nbyt
             "plain_ms": cuda_ms(plain), "library_ms": cuda_ms(library),
             "library": library_label, "max_abs_diff": err, "frac_elements_differing": frac,
             **({"sums_err_of_limit": s_err} if has_sums else {}),
-            **({"design": design} if design else {}),
+            **({"design": design} if design else {}), **(fields or {}),
             **{f"{k}_ms": cuda_ms(fn) for k, fn in extra.items()}}
     emit(line)
-    add_call(agg, line)
+    if agg is not None:
+        add_call(agg, line)
 
 
 def conv_stats_kernel_phase():
@@ -716,15 +737,39 @@ def config_path_phase(name: str, vol: np.ndarray, default_trits: np.ndarray, vol
     return launches
 
 
+def dense_call(block, n, c8, c8o, x, wd, bg, agg, **extra):
+    """One `dil2_dense_conv_stats` call shape through `conv_stats_call`:
+    the bound counts the weight's nonzeros (what this weight needs),
+    `bound_dense_ms` every element; the line names the kernel's column
+    tile BN and the share of k-step tiles it executes."""
+    pcs.dil2_dense_conv_stats(x, wd, bg)
+    plan = pcs.dense_tiles
+    executed = int(plan["count"].sum()) / (plan["count"].numel() * plan["nsteps"])
+    vox = BATCH * n ** 3
+    nbytes = 2 * (vox * c8 + vox * c8o + wd.numel()) + 4 * (c8o + 2 * BATCH * c8o)
+    conv_stats_call(
+        "dil2_dense_conv_stats", block, [BATCH, n, n, n, c8, c8o],
+        lambda: pcs.dil2_dense_conv_stats(x, wd, bg),
+        lambda: pcs.dil2_dense_conv_stats_plain(x, wd, bg),
+        lambda: pcs.dil2_dense_conv_stats_plain(x.abs(), wd.abs(), 0 * bg)[0],
+        lambda: conv3d(x, wd, padding=1),
+        2 * vox * int((wd != 0).sum()), nbytes, agg,
+        library_label="cuDNN bf16 dense conv with the same weight, no sums", design="wgmma",
+        fields={"bn": plan["bn"], "executed_tile_share": executed,
+                "bound_dense_ms": cs_bound(2 * vox * 27 * c8 * c8o, nbytes)[0]}, **extra)
+
+
 def conv_epi_kernel_phase():
     """dil2_dense_conv_stats at its 3 and phased_conv_ungathered at its 5
     call shapes of the conv_epi configuration (batch 8, bf16, seeded
     inputs), each against its plain version with the checks of the
     conv_stats phase. The dense form gets the block-diagonal lift of a
-    random dil-2 kernel, as the model gives it, and pays its 8x zero
-    FLOPs; its library call is cuDNN's bf16 conv with the same weight, and
-    K9's time on the same block is reported beside it. The ungathered
-    conv's library call is the default path's cuDNN phased conv."""
+    random dil-2 kernel, as the model gives it, and skips its all-zero
+    k-step tiles; its library call is cuDNN's bf16 conv with the same
+    weight, and K9's time on the same block is reported beside it. One
+    more dense call, at ec5's shape on a dense random weight, is held to
+    the same checks and not summed. The ungathered conv's library call is
+    the default path's cuDNN phased conv."""
     gen = torch.Generator(device="cuda").manual_seed(9)
     bf = torch.bfloat16
     summary = {"dil2_dense_conv_stats": new_summary(), "phased_conv_ungathered": new_summary()}
@@ -734,24 +779,19 @@ def conv_epi_kernel_phase():
 
     for block, n, c8, c8o in CE_DIL2:
         x = randn(BATCH, n, n, n, c8).to(bf)
-        vox = BATCH * n ** 3
         w = randn(3, 3, 3, c8 // 8, c8o // 8, scale=1 / math.sqrt(27 * c8 // 8)).to(bf)
         b = randn(c8o // 8, scale=0.1)
         wd = ps2d.dil2_dense_weight(w, bf)
-        bg = b.repeat(8)
-        conv_stats_call(
-            "dil2_dense_conv_stats", block, [BATCH, n, n, n, c8, c8o],
-            lambda: pcs.dil2_dense_conv_stats(x, wd, bg),
-            lambda: pcs.dil2_dense_conv_stats_plain(x, wd, bg),
-            lambda: pcs.dil2_dense_conv_stats_plain(x.abs(), wd.abs(), 0 * bg)[0],
-            lambda: conv3d(x, wd, padding=1),
-            2 * vox * 27 * c8 * c8o,
-            2 * (vox * c8 + vox * c8o + wd.numel()) + 4 * (c8o + 2 * BATCH * c8o),
-            summary["dil2_dense_conv_stats"],
-            library_label="cuDNN bf16 dense conv with the block-diagonal weight, no sums",
-            k9_same_block=lambda: pcs.dil2_conv_stats(x, w, b))
-        del x, w, b, wd, bg
+        dense_call(block, n, c8, c8o, x, wd, b.repeat(8), summary["dil2_dense_conv_stats"],
+                   k9_same_block=lambda: pcs.dil2_conv_stats(x, w, b))
+        del x, w, b, wd
         torch.cuda.empty_cache()
+    block, n, c8, c8o = next(c for c in CE_DIL2 if c[0] == "ec5")
+    x = randn(BATCH, n, n, n, c8).to(bf)
+    wd = randn(3, 3, 3, c8, c8o, scale=1 / math.sqrt(27 * c8)).to(bf)
+    dense_call(block + "_dense_weight", n, c8, c8o, x, wd, randn(c8o, scale=0.1), None)
+    del x, wd
+    torch.cuda.empty_cache()
     for block, n, cis, c8o in CE_PHASED:
         xs = [randn(BATCH, n, n, n, c).to(bf) for c in cis]
         cin, m = sum(cis), n + 1
@@ -765,7 +805,7 @@ def conv_epi_kernel_phase():
             lambda: ps2d.phased_conv_ext(xs, w, b.to(bf)),
             2 * BATCH * m ** 3 * 8 * cin * c8o,
             2 * (BATCH * n ** 3 * cin + BATCH * m ** 3 * c8o + w.numel()) + 4 * c8o,
-            summary["phased_conv_ungathered"],
+            summary["phased_conv_ungathered"], design="wgmma",
             library_label="cuDNN bf16 phased conv of the default path (per-input partial sums)")
         del xs, w, b
         torch.cuda.empty_cache()
@@ -993,11 +1033,10 @@ def main() -> int:
     emit({"build": {
         "seconds": time.perf_counter() - t0, "library": lib.path.name,
         "nvcc_seconds": lib.build_seconds, "ptxas": ptxas,
-        "phased_conv_wgmma": {
-            "dynamic_smem_bytes": {
-                f"8Co={8 * co}": lib.lib.airseg_phased_conv_stats_wgmma_smem(co)
-                for co in (8, 16, 32)},
-            "ptxas": {k: v for k, v in ptxas.items() if "phased_conv_wgmma" in k}}}})
+        "conv_wgmma": {
+            "dynamic_smem_bytes": {f"BN={bn}": lib.lib.airseg_conv_wgmma_smem(bn)
+                                   for bn in (64, 128, 256)},
+            "ptxas": wgmma_report(ptxas)}}})
 
     summary = kernel_phase()
     summary.update(train_kernel_phase())

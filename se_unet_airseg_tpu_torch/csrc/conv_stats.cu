@@ -7,7 +7,7 @@
 //     written as a 2^3 block conv whose output phase q = (a, b, c) reads
 //     x at the block offset (a + sz - 1, b + sy - 1, c + sx - 1) for tap
 //     s = (sz, sy, sx); y[..., q*Co + o] = bias + sum_s sum_c x * w_all[s, c, q*Co + o];
-//     float32 only here: the bf16 form is phased_conv_wgmma.cu;
+//     float32 only here: the bf16 form is conv_wgmma.cu;
 //   dil-2 conv stats: dil2_conv_stats (_pallas_dil2_forward, _dil2_kernel):
 //     the dilation-2 3^3 conv on the s2d fold as 8 independent dil-1 convs,
 //     one per sub-position p, all with the same (27*Ci, Co) kernel;
@@ -16,10 +16,12 @@
 //     pad-1 3^3 conv of the s2d tensor with any (27*C8, C8o) kernel (the
 //     model passes the block-diagonal lift of the dil-2 kernel and pays its
 //     8x structural-zero FLOPs, as the TPU kernel does), with the sums;
+//     float32 only here: the bf16 form is conv_wgmma.cu;
 //   ungathered phased conv: phased_conv_ext_bm (_pconv_kernel_bm) and its
 //     k-grid form (_pconv_kgrid_kernel_bm): the 2^3 block conv to the
 //     (n+1)^3 output grid, y_ext[v'] = bias + sum_s sum_c x[v' + s - 1, c] *
-//     w_all[s, c, :], the same offsets for every output column, no sums.
+//     w_all[s, c, :], the same offsets for every output column, no sums;
+//     float32 only here: the bf16 form is conv_wgmma.cu.
 // The statistics forms also emit s1, s2 (B, 8Co) f32: the sums of y and y^2
 // over the voxels, taken from the f32 accumulator after the bias and before
 // y is rounded to its storage type, as the Pallas kernels do.
@@ -44,9 +46,8 @@
 // simple one: the groups of one voxel tile run as neighbouring blocks, so
 // x comes from device memory about once, and each x vector is read into
 // shared memory once per (group, column tile, tap) that uses it, mostly
-// from L2. wgmma (phased_conv_wgmma.cu has it for the bf16 phased conv
-// stats), TMA, and skipping the block-diagonal zeros of the dense dil-2
-// weight are later work.
+// from L2. The bf16 phased, dense dil-2 and ungathered forms moved to the
+// wgmma kernels of conv_wgmma.cu; the bf16 dil-2 form (K9) stays here.
 // Offsets are 64-bit. The kernels allocate nothing, launch on the caller's
 // stream and report launch errors through cudaGetLastError().
 
@@ -450,7 +451,7 @@ extern "C" int airseg_phased_conv_stats(int dtype, const void* x0, int c0, const
                                         const void* w_all, const float* b_all, void* y,
                                         float* s1, float* s2, long long batch, int n, int co,
                                         void* stream) {
-  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);  // bf16: phased_conv_wgmma.cu
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);  // bf16: conv_wgmma.cu
   Args a{x0, c1 ? x1 : x0, c0, c1, 0, c0 + c1, w_all, 8 * co, co, b_all, co, y, s1, s2,
          n, n, 8, co};
   return launch<float, kPhased>(a, batch, static_cast<cudaStream_t>(stream));
@@ -464,21 +465,25 @@ extern "C" int airseg_dil2_conv_stats(int dtype, const void* x, int ci, const vo
   return launch_dtype<kDil2>(dtype, a, batch, stream);
 }
 
-// x (B, n, n, n, c8); wd (3, 3, 3, c8, c8o) in x's type, any dense kernel;
-// bg (c8o,) f32. y (B, n, n, n, c8o), s1, s2 (B, c8o).
+// dtype 0 (float32) only: bf16 is conv_wgmma.cu. x (B, n, n, n, c8); wd
+// (3, 3, 3, c8, c8o), any dense kernel; bg (c8o,). y (B, n, n, n, c8o), s1,
+// s2 (B, c8o).
 extern "C" int airseg_dil2_dense_conv_stats(int dtype, const void* x, int c8, const void* wd,
                                             const float* bg, void* y, float* s1, float* s2,
                                             long long batch, int n, int c8o, void* stream) {
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   Args a{x, x, c8, 0, 0, c8, wd, c8o, 0, bg, 0, y, s1, s2, n, n, 1, c8o};
-  return launch_dtype<kDil2>(dtype, a, batch, stream);
+  return launch<float, kDil2>(a, batch, static_cast<cudaStream_t>(stream));
 }
 
-// x0, x1 as for airseg_phased_conv_stats; w_all (8, c0 + c1, c8o) in x's
-// type; b_all (c8o,) f32. y (B, n+1, n+1, n+1, c8o), no sums.
+// dtype 0 (float32) only: bf16 is conv_wgmma.cu. x0, x1 as for
+// airseg_phased_conv_stats; w_all (8, c0 + c1, c8o); b_all (c8o,). y (B,
+// n+1, n+1, n+1, c8o), no sums.
 extern "C" int airseg_phased_conv_ext(int dtype, const void* x0, int c0, const void* x1, int c1,
                                       const void* w_all, const float* b_all, void* y,
                                       long long batch, int n, int c8o, void* stream) {
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   Args a{x0, c1 ? x1 : x0, c0, c1, 0, c0 + c1, w_all, c8o, 0, b_all, 0, y, nullptr, nullptr,
          n, n + 1, 1, c8o};
-  return launch_dtype<kExt>(dtype, a, batch, stream);
+  return launch<float, kExt>(a, batch, static_cast<cudaStream_t>(stream));
 }

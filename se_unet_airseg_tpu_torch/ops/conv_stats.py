@@ -3,11 +3,15 @@
 
 Counterparts of the JAX package's `phased_conv_stats`, `dil2_conv_stats`,
 `dil2_conv_stats_bm` and `phased_conv_ext_bm` (`ops/pallas_s2d.py:1081`,
-`:404`, `:1714`, `:2179`). All four are one CUDA kernel here
-(`csrc/conv_stats.cu`, built and bound by `ops/cuda_lib.py`), except the
-bf16 `phased_conv_stats`: a wgmma GEMM over the (n+1)^3 grid with the
-phase gather in its epilogue (`csrc/phased_conv_wgmma.cu`; its rule is
-`phase_scatter_plain`), which reads the weight K-major; the three
+`:404`, `:1714`, `:2179`), built and bound by `ops/cuda_lib.py`. In bf16,
+`phased_conv_stats`, `dil2_dense_conv_stats` and `phased_conv_ungathered`
+are the three epilogue forms of one wgmma implicit GEMM
+(`csrc/conv_wgmma.cu`), which reads the weight K-major and walks a table
+of k-steps (`kstep_table`): the phased conv stats over the (n+1)^3 grid
+with the phase gather in its epilogue (its rule is `phase_scatter_plain`),
+the dense conv skipping the k-steps whose weight tile is all zeros (its
+rule is `block_sparse_ksteps_plain`). `dil2_conv_stats`, and every form in
+float32, are one mma.sync / FMA kernel (`csrc/conv_stats.cu`). The three
 statistics forms return the conv output y together with its per-lane sums
 s1 = sum(y) and s2 = sum(y^2) over the voxels, f32, taken before y is
 rounded:
@@ -38,7 +42,10 @@ and :416-422).
 
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.nn.functional as F
 
 from .conv import conv3d
 from .cuda_lib import _DTYPE_CODE, F32, _acc, _on_card, _stream, launch
@@ -114,6 +121,95 @@ def phased_conv_ungathered_plain(xs, w_all, b_all=None):
     return phased_conv_ext([t.to(acc) for t in xs], w_all.to(acc), b).to(dt)
 
 
+# ------------------------------------------------- the wgmma k-step table
+
+_BK = 64  # lanes of one k-step of the wgmma kernel
+_WGMMA_FORM = {"phased_conv_stats": 0, "phased_conv_ungathered": 1, "dil2_dense_conv_stats": 2}
+# the last dense launch's plan: column tile "bn", k-steps "nsteps" of each
+# column tile, and "count" (C8o / BN,), the k-steps each executed (a device
+# tensor, read without a sync)
+dense_tiles: dict = {}
+
+
+def kstep_table(taps: int, widths) -> torch.Tensor:
+    """The wgmma kernel's k-steps over `taps` taps of the plain concat of
+    inputs `widths` lanes wide, in ascending K order (K = tap * Cin + lane
+    of the concat): one int32 entry tap | input << 5 | valid << 6 | first
+    lane << 13 per 64 lanes of one tap of one input; `valid` < 64 lanes at
+    an input's end, the rest zero-filled."""
+    return torch.tensor([t | i << 5 | min(_BK, c - l0) << 6 | l0 << 13
+                         for t in range(taps) for i, c in enumerate(widths)
+                         for l0 in range(0, c, _BK)], dtype=torch.int32)
+
+
+def kstep_fields(entries: torch.Tensor):
+    """(tap, input, first lane, valid lanes) of packed k-step entries."""
+    e = entries.long()
+    return e & 31, (e >> 5) & 1, e >> 13, (e >> 6) & 127
+
+
+@functools.lru_cache(maxsize=None)
+def _kstep_table_on(taps: int, widths: tuple, device: torch.device) -> torch.Tensor:
+    return kstep_table(taps, widths).to(device)
+
+
+def _tile_nonzero(wt, taps: int, c8: int, bn: int) -> torch.Tensor:
+    """(N / bn, taps * ceil(c8 / 64)) bool: whether the (bn x 64) tile of
+    the K-major weight wt (N, taps * c8) at each (column tile, k-step)
+    holds a nonzero; lanes past c8 count as zeros."""
+    k = -(-c8 // _BK) * _BK
+    w = F.pad(wt.reshape(wt.shape[0], taps, c8), (0, k - c8))
+    return (w != 0).reshape(wt.shape[0] // bn, bn, taps * k // _BK, _BK).any(3).any(1)
+
+
+@functools.lru_cache(maxsize=None)
+def dense_bn(c8: int, c8o: int) -> int:
+    """The dense kernel's column tile for a (C8, C8o) weight: of 256, 128
+    and 64 dividing C8o, the one that executes the fewest k-step tiles x
+    BN on the block-diagonal `s2d.dil2_dense_weight` of these widths, which
+    the model passes (ties: the larger). Taken from the shapes alone, so
+    the wrapper needs no sync; any other weight runs at this BN too."""
+    diag = torch.block_diag(*[torch.ones(c8o // 8, c8 // 8)] * 8)  # K-major, one tap
+    work = {bn: bn * int(_tile_nonzero(diag, 1, c8, bn).sum())
+            for bn in (256, 128, 64) if c8o % bn == 0}
+    return min(work, key=lambda bn: (work[bn], -bn))
+
+
+def dense_ksteps(wt, c8: int, bn: int):
+    """The dense kernel's k-step lists for the K-major weight wt (C8o, 27
+    C8), on its device, with no host sync: (steps (C8o / bn, nsteps) int32,
+    count (C8o / bn,) int32). Column tile ct walks its first count[ct]
+    entries: the k-steps whose (bn x 64) weight tile holds a nonzero, in
+    ascending K order (a stable sort puts them first)."""
+    nz = _tile_nonzero(wt, 27, c8, bn)
+    order = torch.argsort((~nz).to(torch.uint8), dim=1, stable=True)
+    return _kstep_table_on(27, (c8,), wt.device)[order].contiguous(), nz.sum(1, dtype=torch.int32)
+
+
+def block_sparse_ksteps_plain(x, wd, bg):
+    """The bf16 dense kernel's rule in f32: column tile ct of BN =
+    `dense_bn` columns sums, over the k-steps of its list only (tap t,
+    lanes [l0, l0 + valid) of x), x shifted by tap t with zero fill times
+    those rows of wd; then the bias, the sums, y rounded once. A skipped
+    tile holds only zeros of wd, so for finite x this is
+    `dil2_dense_conv_stats_plain`; a NaN or Inf of x in a skipped lane
+    would reach y there and not here."""
+    b, n, c8, c8o = x.shape[0], x.shape[1], x.shape[-1], wd.shape[-1]
+    bn = dense_bn(c8, c8o)
+    wt = wd.float().permute(4, 0, 1, 2, 3).reshape(c8o, 27 * c8)
+    steps, count = dense_ksteps(wt, c8, bn)
+    tap, _, lane0, valid = kstep_fields(steps)
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1, 1, 1))
+    y = torch.zeros((b, n, n, n, c8o), device=x.device)
+    for ct in range(c8o // bn):
+        cols = slice(ct * bn, (ct + 1) * bn)
+        for i in range(int(count[ct])):
+            t, l0, v = int(tap[ct, i]), int(lane0[ct, i]), int(valid[ct, i])
+            xs = xp[:, t // 9:t // 9 + n, t // 3 % 3:t // 3 % 3 + n, t % 3:t % 3 + n, l0:l0 + v]
+            y[..., cols] += xs @ wt[cols, t * c8 + l0:t * c8 + l0 + v].T
+    return _with_sums(y + bg.float(), x.dtype)
+
+
 # ------------------------------------------------------------- wrappers
 
 
@@ -159,6 +255,25 @@ def _check_bias(b, c8, dev, name):
     return b
 
 
+def _largest_bn(ncols: int) -> int:
+    """The wgmma kernel's default column tile: the largest of 256, 128, 64
+    that divides the output width."""
+    return next(bn for bn in (256, 128, 64) if ncols % bn == 0)
+
+
+def _launch_wgmma(name, xs, wt, steps, count, bias, y, sums, n, bn):
+    """One launch of the wgmma kernel's form `name`: xs one or two inputs,
+    wt the K-major weight, steps the k-step list of every column tile (1-D:
+    one list for all), count its length per column tile (None: all)."""
+    x1 = xs[1] if len(xs) == 2 else None
+    s1, s2 = (None, None) if sums is None else (sums[0].data_ptr(), sums[1].data_ptr())
+    launch("airseg_conv_wgmma", name, _WGMMA_FORM[name], xs[0].data_ptr(), xs[0].shape[-1],
+           None if x1 is None else x1.data_ptr(), 0 if x1 is None else x1.shape[-1],
+           wt.data_ptr(), steps.data_ptr(), steps.shape[-1] if steps.dim() == 2 else 0,
+           None if count is None else count.data_ptr(), steps.shape[-1], bias.data_ptr(),
+           y.data_ptr(), s1, s2, y.shape[0], n, y.shape[-1], bn, _stream(y))
+
+
 def _phased_conv_stats_fwd(xs, w_all, b_all):
     if not _on_card(xs[0]):
         return phased_conv_stats_plain(xs, w_all, b_all)
@@ -179,19 +294,18 @@ def _phased_conv_stats_fwd(xs, w_all, b_all):
     w_all = _check_weight(w_all, dt, dev, (8, cin, c8), "w_all")
     b_all = _check_bias(b_all, c8, dev, "b_all")
     y, s1, s2 = _outputs(xs[0], b, n, c8)
-    x1 = xs[1] if len(xs) == 2 else None
-    x_args = (xs[0].data_ptr(), xs[0].shape[-1], None if x1 is None else x1.data_ptr(),
-              0 if x1 is None else x1.shape[-1])
-    out_args = (b_all.data_ptr(), y.data_ptr(), s1.data_ptr(), s2.data_ptr(), b, n, c8 // 8,
-                _stream(y))
     with torch.cuda.device(dev):
         if bf16:  # wgmma reads the weight K-major: (8Co, 8 Cin)
             wt = w_all.permute(2, 0, 1).reshape(c8, 8 * cin).contiguous()
-            launch("airseg_phased_conv_stats_wgmma", "phased_conv_stats", *x_args,
-                   wt.data_ptr(), *out_args)
+            steps = _kstep_table_on(8, tuple(t.shape[-1] for t in xs), dev)
+            _launch_wgmma("phased_conv_stats", xs, wt, steps, None, b_all, y, (s1, s2), n,
+                          _largest_bn(c8))
         else:
-            launch("airseg_phased_conv_stats", "phased_conv_stats", _DTYPE_CODE[dt], *x_args,
-                   w_all.data_ptr(), *out_args)
+            x1 = xs[1] if len(xs) == 2 else None
+            launch("airseg_phased_conv_stats", "phased_conv_stats", _DTYPE_CODE[dt],
+                   xs[0].data_ptr(), xs[0].shape[-1], None if x1 is None else x1.data_ptr(),
+                   0 if x1 is None else x1.shape[-1], w_all.data_ptr(), b_all.data_ptr(),
+                   y.data_ptr(), s1.data_ptr(), s2.data_ptr(), b, n, c8 // 8, _stream(y))
     return y, s1, s2
 
 
@@ -230,9 +344,16 @@ def _dil2_dense_conv_stats_fwd(x, wd, bg):
     bg = _check_bias(bg, c8o, dev, "bg")
     y, s1, s2 = _outputs(x, bsz, n, c8o)
     with torch.cuda.device(dev):
-        launch("airseg_dil2_dense_conv_stats", "dil2_dense_conv_stats", _DTYPE_CODE[dt],
-               x.data_ptr(), c8, wd.data_ptr(), bg.data_ptr(), y.data_ptr(), s1.data_ptr(),
-               s2.data_ptr(), bsz, n, c8o, _stream(y))
+        if dt == torch.bfloat16:  # wgmma, K-major (C8o, 27 C8), all-zero weight tiles skipped
+            bn = dense_bn(c8, c8o)
+            wt = wd.permute(4, 0, 1, 2, 3).reshape(c8o, 27 * c8).contiguous()
+            steps, count = dense_ksteps(wt, c8, bn)
+            dense_tiles.update(bn=bn, nsteps=steps.shape[1], count=count)
+            _launch_wgmma("dil2_dense_conv_stats", [x], wt, steps, count, bg, y, (s1, s2), n, bn)
+        else:
+            launch("airseg_dil2_dense_conv_stats", "dil2_dense_conv_stats", _DTYPE_CODE[dt],
+                   x.data_ptr(), c8, wd.data_ptr(), bg.data_ptr(), y.data_ptr(), s1.data_ptr(),
+                   s2.data_ptr(), bsz, n, c8o, _stream(y))
     return y, s1, s2
 
 
@@ -252,12 +373,18 @@ def _phased_conv_ungathered_fwd(xs, w_all, b_all):
     b_all = _check_bias(b_all, c8o, dev, "b_all")
     m = n + 1
     y = torch.empty((b, m, m, m, c8o), dtype=dt, device=dev)
-    x1 = xs[1] if len(xs) == 2 else None
     with torch.cuda.device(dev):
-        launch("airseg_phased_conv_ext", "phased_conv_ungathered", _DTYPE_CODE[dt],
-               xs[0].data_ptr(), xs[0].shape[-1], None if x1 is None else x1.data_ptr(),
-               0 if x1 is None else x1.shape[-1], w_all.data_ptr(), b_all.data_ptr(),
-               y.data_ptr(), b, n, c8o, _stream(y))
+        if dt == torch.bfloat16:  # wgmma reads the weight K-major: (8Co, 8 Cin)
+            wt = w_all.permute(4, 0, 1, 2, 3).reshape(c8o, 8 * cin).contiguous()
+            steps = _kstep_table_on(8, tuple(t.shape[-1] for t in xs), dev)
+            _launch_wgmma("phased_conv_ungathered", xs, wt, steps, None, b_all, y, None, n,
+                          _largest_bn(c8o))
+        else:
+            x1 = xs[1] if len(xs) == 2 else None
+            launch("airseg_phased_conv_ext", "phased_conv_ungathered", _DTYPE_CODE[dt],
+                   xs[0].data_ptr(), xs[0].shape[-1], None if x1 is None else x1.data_ptr(),
+                   0 if x1 is None else x1.shape[-1], w_all.data_ptr(), b_all.data_ptr(),
+                   y.data_ptr(), b, n, c8o, _stream(y))
     return y
 
 
@@ -320,7 +447,10 @@ def dil2_dense_conv_stats(x, wd, bg):
     """Dense pad-1 3^3 conv of an s2d tensor + statistics: x (B, n, n, n,
     C8), wd (3, 3, 3, C8, C8o) in x's dtype, bg (C8o,). Returns y (B, n,
     n, n, C8o) in x's dtype, s1, s2 (B, C8o) f32. Replaces
-    dil2_conv_stats_bm."""
+    dil2_conv_stats_bm. In bf16 the kernel skips the k-steps whose weight
+    tile is all zeros (`block_sparse_ksteps_plain`): the same result for
+    finite x, but a NaN or Inf of x in a skipped lane, which the dense TPU
+    kernel would carry into y as NaN, does not reach y here."""
     return _call(_dil2_dense_conv_stats_fwd, dil2_dense_conv_stats_plain, x, wd, bg)
 
 

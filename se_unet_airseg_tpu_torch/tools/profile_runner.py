@@ -50,8 +50,10 @@ from ..train import create_train_state, make_optimizer, make_train_step
 # the convolution patterns come before the GEMM ones
 _CATEGORIES = [
     ("epilogue kernels (forward, phased_normalize)", ("epilogue_kernel",)),
-    ("wgmma conv kernel (K8 in bf16)", ("phased_conv_wgmma_kernel",)),
-    ("conv kernel (K8 in f32, K9-K11: dil-2, dense dil-2, ungathered)", ("conv_stats_kernel",)),
+    ("wgmma K8 (phased conv stats, bf16)", ("phased_conv_stats_wgmma",)),
+    ("wgmma K10 (dense dil-2 conv stats, bf16)", ("dil2_dense_conv_stats_wgmma",)),
+    ("wgmma K11 (ungathered phased conv, bf16)", ("phased_conv_ungathered_wgmma",)),
+    ("conv kernel (K9; K8, K10, K11 in f32)", ("conv_stats_kernel",)),
     ("pool backward kernel", ("pool_bwd_kernel",)),
     ("cuDNN layout transforms", ("tensortransform", "nhwctonchw", "nchwtonhwc")),
     ("convolution", ("fprop", "dgrad", "wgrad", "conv", "implicit")),

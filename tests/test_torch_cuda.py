@@ -335,6 +335,84 @@ def test_phased_conv_ungathered_kernel_matches_plain(dev, dtype, b, n, cis, c8o,
     _ulp_close(got, pcs.phased_conv_ungathered_plain(xs, w_all, b_all), mag.float())
 
 
+def _dense_case(dev, b, n, c8, c8o, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, n, n, n, c8), generator=g, device=dev).to(torch.bfloat16)
+    bg = 0.1 * torch.randn((c8o,), generator=g, device=dev)
+    return g, x, bg
+
+
+def _check_dense(x, wd, bg):
+    """One bf16 dense launch against the plain version, at the
+    tolerances of test_dil2_dense_conv_stats_kernel_matches_plain; returns
+    the k-step tiles the launch executed and the tiles of the dense GEMM."""
+    reset_launch_counts()
+    got = pcs.dil2_dense_conv_stats(x, wd, bg)
+    torch.cuda.synchronize()
+    assert launch_counts == _counts(dil2_dense_conv_stats=1)
+    mag = pcs.dil2_dense_conv_stats_plain(x.abs(), wd.abs(), 0 * bg)[0]
+    _conv_stats_close(got, pcs.dil2_dense_conv_stats_plain(x, wd, bg), mag.float())
+    plan = pcs.dense_tiles
+    return int(plan["count"].sum()), plan["count"].numel() * plan["nsteps"]
+
+
+@pytest.mark.parametrize("c8,c8o,bn,frac", [(256, 256, 64, 1 / 4), (128, 256, 128, 1 / 2),
+                                            (64, 256, 256, 1.0)])
+def test_dil2_dense_conv_stats_block_diagonal_skips_zero_tiles(dev, c8, c8o, bn, frac):
+    """bf16 on the block-diagonal lift the model passes, at each column
+    tile: ec5's widths (BN 64, a quarter of the k-steps), ec3's (BN 128,
+    half) and Ci = 8 (BN 256, every k-step holds a nonzero). The launch
+    executes the fraction of tiles the table predicts."""
+    g, x, _ = _dense_case(dev, 2, 5, c8, c8o, 11)
+    w = (0.1 * torch.randn((3, 3, 3, c8 // 8, c8o // 8), generator=g, device=dev))
+    wd = ps2d.dil2_dense_weight(w, torch.bfloat16)
+    bg = (0.1 * torch.randn((c8o // 8,), generator=g, device=dev)).repeat(8)
+    assert pcs.dense_bn(c8, c8o) == bn
+    executed, tiles = _check_dense(x, wd, bg)
+    assert executed == frac * tiles and pcs.dense_tiles["bn"] == bn
+
+
+def test_dil2_dense_conv_stats_tile_sparse_and_zero_weight(dev):
+    """bf16 on a dense weight with random whole (BN x 64) k-step tiles
+    zeroed: the launch executes exactly the nonzero tiles; on an all-zero
+    weight it executes none, and y is the bias, with its sums."""
+    b, n, c8, c8o = 2, 6, 128, 256
+    g, x, bg = _dense_case(dev, b, n, c8, c8o, 12)
+    bn = pcs.dense_bn(c8, c8o)
+    keep = torch.rand((c8o // bn, 27, c8 // 64), generator=g, device=dev) < 0.3
+    mask = keep[:, None, :, :, None].expand(c8o // bn, bn, 27, c8 // 64, 64)
+    mask = mask.reshape(c8o, 3, 3, 3, c8).permute(1, 2, 3, 4, 0)
+    wd = ((0.05 * torch.randn((3, 3, 3, c8, c8o), generator=g, device=dev)) * mask)
+    wd = wd.to(torch.bfloat16)
+    assert _check_dense(x, wd, bg) == (int(keep.sum()), keep.numel())
+    zero = torch.zeros_like(wd)
+    assert _check_dense(x, zero, bg) == (0, keep.numel())
+    y, s1, s2 = pcs.dil2_dense_conv_stats(x, zero, bg)
+    torch.testing.assert_close(y, bg.to(torch.bfloat16).expand_as(y), rtol=0, atol=0)
+    torch.testing.assert_close(s1, n ** 3 * bg.expand(b, c8o), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,n,cis,c8o,bias", [(2, 6, (128,), 256, True),
+                                              (2, 6, (128,), 256, False),
+                                              (1, 9, (64, 64), 192, True),
+                                              (1, 9, (64, 64), 192, False)])
+def test_phased_conv_ungathered_bf16_ragged_grid(dev, b, n, cis, c8o, bias):
+    """bf16 with (n+1)^3 = 343 and 1000, no multiple of the 128-row tile,
+    with and without bias; 8Co = 192 runs three 64-column tiles."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    xs = [torch.randn((b, n, n, n, c), generator=g, device=dev).to(torch.bfloat16)
+          for c in cis]
+    w_all = 0.05 * torch.randn((2, 2, 2, sum(cis), c8o), generator=g, device=dev)
+    w_all = w_all.to(torch.bfloat16)
+    b_all = 0.1 * torch.randn((c8o,), generator=g, device=dev) if bias else None
+    reset_launch_counts()
+    got = pcs.phased_conv_ungathered(xs, w_all, b_all)
+    torch.cuda.synchronize()
+    assert launch_counts == _counts(phased_conv_ungathered=1)
+    mag = pcs.phased_conv_ungathered_plain([t.abs() for t in xs], w_all.abs())
+    _ulp_close(got, pcs.phased_conv_ungathered_plain(xs, w_all, b_all), mag.float())
+
+
 def test_conv_epi_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     x = torch.randn((1, 4, 4, 4, 64), device=dev)
     with pytest.raises(ValueError):  # C8o = 32

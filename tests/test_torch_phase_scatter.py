@@ -1,6 +1,6 @@
 """The bf16 `phased_conv_stats` kernel's epilogue rule on the CPU.
 
-The kernel (csrc/phased_conv_wgmma.cu) computes the ungathered phased conv
+The kernel (csrc/conv_wgmma.cu, form (a)) computes the ungathered phased conv
 on the (n+1)^3 grid and scatters each row of phase q's columns to
 y[v' - q], masked to n^3; `phase_scatter_plain` states that rule row by
 row. Here it is held against the 8 phase windows that the plain version of
