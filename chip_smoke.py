@@ -7,12 +7,15 @@ Needs one CUDA card and nvcc; exits non-zero without them. Phases:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off for
    the float32 phases;
-2. build: nvcc builds the kernels from the five sources under csrc/,
+2. build: nvcc builds the kernels from the six sources under csrc/,
    one nvcc per source, started together, into one library; the line
    reports ptxas's registers and spills of every kernel and, for the
    wgmma kernels of csrc/conv_wgmma.cu (the bf16 `phased_conv_stats`,
    `dil2_dense_conv_stats` and `phased_conv_ungathered`), their registers,
-   spills and dynamic shared memory per column tile BN;
+   spills and dynamic shared memory per column tile BN, and for the
+   halo-brick wgmma kernel of csrc/dil2_wgmma.cu (the bf16
+   `dil2_conv_stats`) its registers and spills per BN and its dynamic
+   shared memory at the model's three dil-2 tiles;
 3. kernels: the two epilogue kernels against their plain PyTorch
    versions at the 15 call shapes of the inference path (batch 8, bf16),
    with their time (CUDA events, median of 20 launches), the plain
@@ -43,9 +46,11 @@ Needs one CUDA card and nvcc; exits non-zero without them. Phases:
    launches must read 10/5/5/2 per step, every loss must be finite and
    the batch's loss under one fixed set of DropLayer draws must fall;
 9. conv_stats kernels: `phased_conv_stats` (the wgmma kernel, `design`
-   "wgmma" on its lines) at the 5 phased and `dil2_conv_stats` at the 3
-   dil-2 call shapes of the conv_stats configuration (batch 8, bf16)
-   against their plain versions: y within
+   "wgmma" on its lines) at the 5 phased and `dil2_conv_stats` (the
+   halo-brick wgmma kernel, `design` "halo-brick wgmma", with its tile:
+   brick 8 x ty x tz voxels, column tile, shared memory) at the 3 dil-2 call
+   shapes of the conv_stats configuration (batch 8, bf16) against their
+   plain versions: y within
    one bf16 ulp (plus 2^-18 of the sum of |terms|, the f32 reordering
    floor near zero), s1/s2 within 1e-4 of each channel's sum of |y| and
    y^2; with ms, the plain version's ms, the bound (bf16 FLOPs at
@@ -159,8 +164,8 @@ CE_DIL2 = [(blk, n, 8 * ci, 8 * co) for blk, n, ci, co in CS_DIL2]
 # instance_norm_leaky: (name, shape) of the shape its docstring names and
 # the s2d form of ec3's output
 NL_SHAPES = [("docstring", (1, 64 ** 3, 256)), ("ec3_s2d", (BATCH, 64 ** 3 * 8, 32))]
-CS_SRC = "se_unet_airseg_tpu_torch/csrc/conv_stats.cu"
 WGMMA_SRC = "se_unet_airseg_tpu_torch/csrc/conv_wgmma.cu"
+DIL2_SRC = "se_unet_airseg_tpu_torch/csrc/dil2_wgmma.cu"
 NL_SRC = "se_unet_airseg_tpu_torch/csrc/norm_leaky.cu"
 EPI_SRC = "se_unet_airseg_tpu_torch/csrc/epilogue.cu"
 KERNELS = {  # name: (the Pallas functions it replaces, source)
@@ -172,7 +177,7 @@ KERNELS = {  # name: (the Pallas functions it replaces, source)
     "max_pool_s2d_bwd": ("se_unet_airseg_tpu/ops/pallas_s2d.py:671",
                          "se_unet_airseg_tpu_torch/csrc/pool_s2d.cu"),
     "phased_conv_stats": ("se_unet_airseg_tpu/ops/pallas_s2d.py:1081", WGMMA_SRC),
-    "dil2_conv_stats": ("se_unet_airseg_tpu/ops/pallas_s2d.py:404", CS_SRC),
+    "dil2_conv_stats": ("se_unet_airseg_tpu/ops/pallas_s2d.py:404", DIL2_SRC),
     "dil2_dense_conv_stats": ("se_unet_airseg_tpu/ops/pallas_s2d.py:1714", WGMMA_SRC),
     "phased_conv_ungathered": ("se_unet_airseg_tpu/ops/pallas_s2d.py:2179; "
                                "se_unet_airseg_tpu/ops/pallas_s2d.py:2131", WGMMA_SRC),
@@ -201,7 +206,7 @@ def wgmma_report(ptxas: dict) -> dict:
     out = {}
     for name, lines in ptxas.items():
         for kernel in ("phased_conv_stats_wgmma", "phased_conv_ungathered_wgmma",
-                       "dil2_dense_conv_stats_wgmma"):
+                       "dil2_dense_conv_stats_wgmma", "dil2_conv_stats_wgmma"):
             m = re.search(kernel + r"ILi(\d+)E", name)
             if m:
                 out[f"{kernel}<{m.group(1)}>"] = lines
@@ -638,7 +643,8 @@ def conv_stats_kernel_phase():
             lambda: conv3d(x, wg, padding=1, groups=ng),
             2 * vox * 8 * 27 * ci * co,
             2 * (vox * 8 * ci + vox * 8 * co + w.numel()) + 4 * (co + 2 * BATCH * 8 * co),
-            summary["dil2_conv_stats"])
+            summary["dil2_conv_stats"], design="halo-brick wgmma",
+            fields=dict(zip(("ty", "tz", "bn", "smem_bytes"), pcs.dil2_tile(ci, co))))
         del x, w, b, wg
         torch.cuda.empty_cache()
     return summary
@@ -1036,7 +1042,11 @@ def main() -> int:
         "conv_wgmma": {
             "dynamic_smem_bytes": {f"BN={bn}": lib.lib.airseg_conv_wgmma_smem(bn)
                                    for bn in (64, 128, 256)},
-            "ptxas": wgmma_report(ptxas)}}})
+            "ptxas": wgmma_report(ptxas)},
+        "dil2_wgmma": {
+            "dynamic_smem_bytes": {
+                block: lib.lib.airseg_dil2_wgmma_smem(ci, *pcs.dil2_tile(ci, co)[:4])
+                for block, _, ci, co in CS_DIL2}}}})
 
     summary = kernel_phase()
     summary.update(train_kernel_phase())

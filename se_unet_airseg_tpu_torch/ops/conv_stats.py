@@ -10,8 +10,12 @@ are the three epilogue forms of one wgmma implicit GEMM
 of k-steps (`kstep_table`): the phased conv stats over the (n+1)^3 grid
 with the phase gather in its epilogue (its rule is `phase_scatter_plain`),
 the dense conv skipping the k-steps whose weight tile is all zeros (its
-rule is `block_sparse_ksteps_plain`). `dil2_conv_stats`, and every form in
-float32, are one mma.sync / FMA kernel (`csrc/conv_stats.cu`). The three
+rule is `block_sparse_ksteps_plain`). `dil2_conv_stats` in bf16 is a
+persistent halo-brick wgmma kernel (`csrc/dil2_wgmma.cu`) that keeps the
+shared dil-2 weight in shared memory, stages each haloed input brick once
+and reads its A operand from the brick through the wgmma descriptors (its
+rule is `dil2_brick_plain`, its tile `dil2_tile`). Every form in float32 is one FMA kernel
+(`csrc/conv_stats.cu`). The three
 statistics forms return the conv output y together with its per-lane sums
 s1 = sum(y) and s2 = sum(y^2) over the voxels, f32, taken before y is
 rounded:
@@ -210,6 +214,80 @@ def block_sparse_ksteps_plain(x, wd, bg):
     return _with_sums(y + bg.float(), x.dtype)
 
 
+# ------------------------------------------------- the dil-2 brick kernel
+
+_BRICK_X = 8  # the bf16 dil-2 kernel's brick x extent: a slab of 8 voxels x 8 sub-positions
+_SMEM_BLOCK = 232448  # 227 KB: the shared memory one block may use
+# bricks (ty, tz) in the order the tile chooser tries them
+_DIL2_BRICKS = ((4, 2), (2, 2), (2, 1), (1, 1))
+
+
+def _dil2_kp(ci: int) -> int:
+    """K of the bf16 dil-2 kernel's weight: 27 Ci rounded up to 64."""
+    return -(-27 * ci // _BK) * _BK
+
+
+def dil2_smem(ci: int, ty: int, tz: int, bn: int) -> int:
+    """Dynamic shared memory of one block of the bf16 dil-2 kernel, in
+    bytes (`layout` in csrc/dil2_wgmma.cu): the weight's column tile (Kp x
+    bn bf16), the (tz+2) x (ty+2) x 10 halo brick of 8 Ci lanes a voxel,
+    8 voxels of zeros where Ci / 8 is odd, the k16 steps' table and 1 KB
+    of alignment slack."""
+    q = ci // 8
+    vox = 128 * q
+    return (_dil2_kp(ci) * bn * 2 + (_BRICK_X + 2) * (ty + 2) * (tz + 2) * vox
+            + (8 * vox if q % 2 else 0) + 16 * ((27 * q + 1) // 2) + 1024)
+
+
+@functools.lru_cache(maxsize=None)
+def dil2_tile(ci: int, co: int):
+    """The bf16 dil-2 kernel's tile for widths (Ci, Co), from the shapes
+    alone: (ty, tz, bn, smem): bricks of 8 x ty x tz output voxels and
+    column tiles of bn channels. bn is the largest of 64, 32, 16, 8 that
+    divides Co and fits; the brick the first of `_DIL2_BRICKS` that fits
+    (on the card 8 x 4 x 2 ran fastest at ec3 and ec5, and at ec6 the
+    largest that fits beside the BN-64 weight beat it at BN 32; PERF.md
+    §6). Raises where none fits (Ci above 112)."""
+    if ci % 8 or co % 8 or ci <= 0 or co <= 0:
+        raise ValueError(f"Ci and Co must be positive multiples of 8, got Ci={ci}, Co={co}")
+    for bn in (b for b in (64, 32, 16, 8) if co % b == 0):
+        for ty, tz in _DIL2_BRICKS:
+            smem = dil2_smem(ci, ty, tz, bn)
+            if smem <= _SMEM_BLOCK:
+                return ty, tz, bn, smem
+    raise ValueError(f"the bf16 dil-2 kernel's weight and brick do not fit in shared memory "
+                     f"at Ci={ci}, Co={co}")
+
+
+def dil2_brick_plain(x, w, b, tile=None):
+    """The bf16 dil-2 kernel's rule in f32: the output grid in bricks of
+    8 x ty x tz voxels (x, y, z; the last ones ragged), each block a brick
+    and `bn` columns (`tile` = (ty, tz, bn), default `dil2_tile`); its
+    input the zero-filled (tz+2) x (ty+2) x 10 halo brick; per tap (dz, dy,
+    dx) the brick's voxels at that offset times the shared weight w[dz, dy,
+    dx] (Ci, Co), for all 8 sub-positions alike; then the bias, the sums
+    over the voxels inside the volume only, y rounded once. The same
+    function as `dil2_conv_stats_plain`."""
+    bsz, n, ci, co = x.shape[0], x.shape[1], w.shape[3], w.shape[4]
+    ty, tz, bn = tile or dil2_tile(ci, co)[:3]
+    tx = _BRICK_X
+    mz, my, mx = (-(-n // t) * t for t in (tz, ty, tx))
+    xp = F.pad(x.float(), (0, 0, 1, mx + 1 - n, 1, my + 1 - n, 1, mz + 1 - n))
+    halo = xp.unfold(1, tz + 2, tz).unfold(2, ty + 2, ty).unfold(3, tx + 2, tx)
+    halo = halo.unflatten(4, (8, ci))  # (B, nbz, nby, nbx, 8, Ci, tz+2, ty+2, 10)
+    wf, bf = w.float(), b.float()
+    y = torch.zeros((*halo.shape[:4], tz, ty, tx, 8, co), device=x.device)
+    for c0 in range(0, co, bn):
+        acc = torch.zeros((*halo.shape[:4], tz, ty, tx, 8, bn), device=x.device)
+        for tap in range(27):
+            dz, dy, dx = tap // 9, tap // 3 % 3, tap % 3
+            rows = halo[..., dz:dz + tz, dy:dy + ty, dx:dx + tx]  # (B, nb^3, 8, Ci, tz, ty, tx)
+            acc += torch.einsum("bzyxpcijk,co->bzyxijkpo", rows, wf[dz, dy, dx, :, c0:c0 + bn])
+        y[..., c0:c0 + bn] = acc + bf[c0:c0 + bn]
+    y = y.permute(0, 1, 4, 2, 5, 3, 6, 7, 8).reshape(bsz, mz, my, mx, 8 * co)[:, :n, :n, :n]
+    return _with_sums(y, x.dtype)
+
+
 # ------------------------------------------------------------- wrappers
 
 
@@ -324,9 +402,17 @@ def _dil2_conv_stats_fwd(x, w, b):
     b = _check_bias(b, co, dev, "b")
     y, s1, s2 = _outputs(x, bsz, n, 8 * co)
     with torch.cuda.device(dev):
-        launch("airseg_dil2_conv_stats", "dil2_conv_stats", _DTYPE_CODE[dt], x.data_ptr(), ci,
-               w.data_ptr(), b.data_ptr(), y.data_ptr(), s1.data_ptr(), s2.data_ptr(), bsz,
-               n, co, _stream(y))
+        if dt == torch.bfloat16:  # the halo-brick wgmma kernel, weight K-major (Co, Kp)
+            ty, tz, bn, _ = dil2_tile(ci, co)
+            kp = _dil2_kp(ci)
+            wt = F.pad(w.reshape(27 * ci, co).t(), (0, kp - 27 * ci)).contiguous()
+            launch("airseg_dil2_wgmma", "dil2_conv_stats", x.data_ptr(), ci, wt.data_ptr(), kp,
+                   b.data_ptr(), y.data_ptr(), s1.data_ptr(), s2.data_ptr(), bsz, n, co, ty, tz,
+                   bn, _stream(y))
+        else:
+            launch("airseg_dil2_conv_stats", "dil2_conv_stats", _DTYPE_CODE[dt], x.data_ptr(),
+                   ci, w.data_ptr(), b.data_ptr(), y.data_ptr(), s1.data_ptr(), s2.data_ptr(),
+                   bsz, n, co, _stream(y))
     return y, s1, s2
 
 
@@ -439,7 +525,9 @@ def phased_conv_stats(xs, w_all, b_all):
 def dil2_conv_stats(x, w, b):
     """Dilation-2 s2d conv + statistics: x (B, n, n, n, 8Ci), w the
     reference (3, 3, 3, Ci, Co) kernel, b (Co,). Returns y (B, n, n, n,
-    8Co) in x's dtype, s1, s2 (B, 8Co) f32. Replaces dil2_conv_stats."""
+    8Co) in x's dtype, s1, s2 (B, 8Co) f32. Replaces dil2_conv_stats. The
+    bf16 kernel takes Ci and Co multiples of 8 and Ci up to 112
+    (`dil2_tile`); it raises on other widths."""
     return _call(_dil2_conv_stats_fwd, dil2_conv_stats_plain, x, w, b)
 
 

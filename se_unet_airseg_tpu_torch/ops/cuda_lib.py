@@ -26,7 +26,8 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = _CSRC / "build"
-_SOURCES = ("epilogue.cu", "pool_s2d.cu", "conv_stats.cu", "norm_leaky.cu", "conv_wgmma.cu")
+_SOURCES = ("epilogue.cu", "pool_s2d.cu", "conv_stats.cu", "norm_leaky.cu", "conv_wgmma.cu",
+            "dil2_wgmma.cu")
 
 launch_counts = {"gathered_epilogue": 0, "phased_epilogue": 0,
                  "phased_normalize": 0, "max_pool_s2d_bwd": 0,
@@ -77,6 +78,8 @@ _SIGNATURES = {
                           _I, _P],
     "airseg_conv_wgmma_smem": [_I],
     "airseg_dil2_conv_stats": [_I, _P, _I, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
+    "airseg_dil2_wgmma": [_P, _I, _P, _I, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
+    "airseg_dil2_wgmma_smem": [_I, _I, _I, _I],
     "airseg_dil2_dense_conv_stats": [_I, _P, _I, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "airseg_phased_conv_ext": [_I, _P, _I, _P, _I, _P, _P, _P, _LL, _I, _I, _P],
     "airseg_norm_leaky_fwd": [_I, _P, _P, _P, _P, _LL, _LL, _I, _P],

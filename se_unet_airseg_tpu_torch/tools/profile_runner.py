@@ -53,7 +53,8 @@ _CATEGORIES = [
     ("wgmma K8 (phased conv stats, bf16)", ("phased_conv_stats_wgmma",)),
     ("wgmma K10 (dense dil-2 conv stats, bf16)", ("dil2_dense_conv_stats_wgmma",)),
     ("wgmma K11 (ungathered phased conv, bf16)", ("phased_conv_ungathered_wgmma",)),
-    ("conv kernel (K9; K8, K10, K11 in f32)", ("conv_stats_kernel",)),
+    ("wgmma K9 (halo-brick dil-2 conv stats, bf16)", ("dil2_conv_stats_wgmma",)),
+    ("conv kernel (K8-K11 in f32)", ("conv_stats_kernel",)),
     ("pool backward kernel", ("pool_bwd_kernel",)),
     ("cuDNN layout transforms", ("tensortransform", "nhwctonchw", "nchwtonhwc")),
     ("convolution", ("fprop", "dgrad", "wgrad", "conv", "implicit")),

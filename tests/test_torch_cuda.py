@@ -16,7 +16,12 @@ from se_unet_airseg_tpu_torch.models import SEUNet, SEUNetConfig, se_unet_apply_
 from se_unet_airseg_tpu_torch.models.se_unet import _leaves, _tree_map
 from se_unet_airseg_tpu_torch.ops import conv_stats as pcs
 from se_unet_airseg_tpu_torch.ops import epilogue_s2d as eps
-from se_unet_airseg_tpu_torch.ops import launch_counts, norm_leaky, reset_launch_counts
+from se_unet_airseg_tpu_torch.ops import (
+    build_kernels,
+    launch_counts,
+    norm_leaky,
+    reset_launch_counts,
+)
 from se_unet_airseg_tpu_torch.ops import s2d as ps2d
 from se_unet_airseg_tpu_torch.train import make_loss_fn
 
@@ -277,6 +282,68 @@ def test_apply_fast_conv_stats_on_card_matches_cpu(dev):
                                     dil2_conv_stats=3)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g.cpu(), r, rtol=1e-3, atol=1e-4)
+
+
+def _check_dil2_bf16(dev, b, n, ci, co, seed, zero_weight=False):
+    """The bf16 dil-2 kernel (csrc/dil2_wgmma.cu) on one shape against
+    its plain version, at the tolerances of `_conv_stats_close`; returns
+    the outputs."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, n, n, n, 8 * ci), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn((3, 3, 3, ci, co), generator=g, device=dev) / (27 * ci) ** 0.5
+    w = (0 * w if zero_weight else w).to(torch.bfloat16)
+    bias = 0.1 * torch.randn((co,), generator=g, device=dev)
+    reset_launch_counts()
+    got = pcs.dil2_conv_stats(x, w, bias)
+    torch.cuda.synchronize()
+    assert launch_counts == _counts(dil2_conv_stats=1)
+    assert got[0].shape == (b, n, n, n, 8 * co)
+    mag = pcs.dil2_conv_stats_plain(x.abs(), w.abs(), 0 * bias)[0]
+    _conv_stats_close(got, pcs.dil2_conv_stats_plain(x, w, bias), mag.float())
+    return got, bias
+
+
+@pytest.mark.parametrize("b,n,ci,co", [(1, 5, 8, 8), (2, 6, 8, 24), (1, 7, 16, 32),
+                                       (3, 6, 32, 64), (2, 4, 64, 64), (1, 4, 112, 16),
+                                       (1, 9, 24, 48), (1, 9, 16, 48)])
+def test_dil2_conv_stats_bf16_brick_edges(dev, b, n, ci, co):
+    """Ragged n (4, 5, 6, 7, 9: a brick edge in every axis, bricks of 8 x
+    ty x tz), Ci = 8 and 24 (k16 steps that span two taps, and one past
+    the 27 taps), batch 2 and 3, widths whose tile takes smaller bricks
+    (Ci 64, 112) and column tiles of 8, 16 and 32 (Co 24, 48, 64 at Ci 64)."""
+    assert pcs.dil2_tile(ci, co)[3] <= 232448
+    _check_dil2_bf16(dev, b, n, ci, co, seed=n + ci + co)
+
+
+@pytest.mark.parametrize("n,ci,co", [(64, 16, 32), (32, 32, 32), (32, 32, 64)])
+def test_dil2_conv_stats_bf16_model_shapes(dev, n, ci, co):
+    """ec3, ec5 and ec6 at batch 1."""
+    _check_dil2_bf16(dev, 1, n, ci, co, seed=ci + co)
+
+
+def test_dil2_conv_stats_bf16_zero_weight(dev):
+    """An all-zero weight: y is the bias, and each lane's sums are n^3
+    times the bias and its square."""
+    b, n, ci, co = 2, 6, 16, 32
+    (y, s1, s2), bias = _check_dil2_bf16(dev, b, n, ci, co, seed=3, zero_weight=True)
+    b8 = bias.repeat(8)
+    torch.testing.assert_close(y, b8.to(torch.bfloat16).expand_as(y), rtol=0, atol=0)
+    torch.testing.assert_close(s1, n ** 3 * b8.expand(b, 8 * co), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(s2, n ** 3 * b8.square().expand(b, 8 * co), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_dil2_tile_shared_memory_matches_the_kernel(dev):
+    """The wrapper's shape-only tile chooser counts the shared memory the
+    kernel asks for, and the bf16 wrapper refuses widths no tile fits."""
+    lib = build_kernels().lib
+    for ci, co in [(8, 8), (16, 32), (32, 32), (32, 64), (64, 64), (112, 16), (24, 48)]:
+        ty, tz, bn, smem = pcs.dil2_tile(ci, co)
+        assert lib.airseg_dil2_wgmma_smem(ci, ty, tz, bn) == smem <= 232448
+    x = torch.zeros((1, 4, 4, 4, 8 * 120), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        pcs.dil2_conv_stats(x, torch.zeros((3, 3, 3, 120, 8), device=dev,
+                                           dtype=torch.bfloat16), torch.zeros(8, device=dev))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
