@@ -213,6 +213,11 @@ def wgmma_report(ptxas: dict) -> dict:
     return out
 
 
+def named_report(ptxas: dict, kernels) -> dict:
+    """The ptxas lines of every instance of `kernels`, by mangled name."""
+    return {name: lines for name, lines in ptxas.items() if any(k in name for k in kernels)}
+
+
 def counts(**nonzero) -> dict:
     """Every kernel's launch count: `nonzero`, 0 for the others."""
     return {k: nonzero.get(k, 0) for k in launch_counts}
@@ -242,6 +247,36 @@ def cuda_ms(fn, reps: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def copy_ms(nbytes: int) -> float:
+    """The card's practical memory floor for a call that moves `nbytes`
+    (reads plus writes): the median of 20 device-to-device
+    `Tensor.copy_` calls of nbytes / 2 bytes each way."""
+    src = torch.empty(nbytes // 2, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    ms = cuda_ms(lambda: dst.copy_(src))
+    del src, dst
+    return ms
+
+
+def design_ms(kernel, *args) -> dict:
+    """ms of each epilogue design (`eps.DESIGNS`) on the same inputs, each
+    checked against the chosen design's output first."""
+    ref = kernel(*args)
+    out = {}
+    for name in eps.DESIGNS:
+        if not torch.equal(kernel(*args, design=name), ref):
+            # the gate logits may sum in another order: hold to the tolerance
+            got = kernel(*args, design=name)
+            if got.dtype == torch.bfloat16:
+                _, ok = bf16_mismatch(got, ref)
+            else:
+                ok = torch.allclose(got, ref, rtol=1e-5, atol=1e-6)
+            if not ok:
+                raise AssertionError(f"design {name} disagrees with the chosen design")
+        out[name] = cuda_ms(lambda: kernel(*args, design=name))
+    return out
 
 
 def bf16_mismatch(got: torch.Tensor, ref: torch.Tensor):
@@ -303,6 +338,11 @@ def add_call(agg: dict, line: dict) -> None:
         agg[k] += line[k]
     if line.get("library_ms") is not None:
         agg["library_ms"] = (agg["library_ms"] or 0.0) + line["library_ms"]
+    if "copy_ms" in line:
+        agg["copy_ms"] = agg.get("copy_ms", 0.0) + line["copy_ms"]
+    if "design" in line:
+        agg["design"] = line["design"] if agg.get("design", line["design"]) == line["design"] \
+            else "by shape"
     agg["max_abs_err"] = max(agg["max_abs_err"], line["max_abs_diff"])
     if line["bound_by"] != "bytes":
         agg["bound_by"] = line["bound_by"]
@@ -329,8 +369,12 @@ def kernel_phase():
             plain_ms = cuda_ms(lambda: plain(y, scale8, shift8, wse))
             b_ms, b_by = bound(y.element_size(), got.numel(), c8, gates)
             line = {"kernel": kind, "block": block, "shape": list(y.shape), "gates": gates,
+                    "design": eps.pick_design(y, kind == "phased_epilogue"),
                     "ms": ms, "bound_ms": b_ms, "bound_by": b_by, "plain_ms": plain_ms,
+                    "copy_ms": copy_ms(2 * got.numel() * got.element_size()),
+                    "designs_ms": design_ms(kernel, y, scale8, shift8, wse),
                     "max_abs_diff": err, "frac_elements_differing": frac}
+            line["x_bound"] = ms / b_ms
             emit(line)
             add_call(agg, line)
             del y, got, ref
@@ -367,11 +411,15 @@ def train_kernel_phase():
                                  f"plain version (max |d| {float(d.max())})")
         b_ms, b_by = bound(y.element_size(), got.numel(), c8, 0)
         line = {"kernel": "phased_normalize", "block": block, "shape": list(y.shape),
+                "design": eps.pick_design(y, True, normalize=True),
                 "ms": cuda_ms(lambda: eps.phased_normalize(y, scale8, shift8)),
                 "bound_ms": b_ms, "bound_by": b_by,
                 "plain_ms": cuda_ms(lambda: eps.phased_normalize_plain(y, scale8, shift8)),
+                "copy_ms": copy_ms(2 * got.numel() * got.element_size()),
+                "designs_ms": design_ms(eps.phased_normalize, y, scale8, shift8),
                 "max_abs_diff": float(d.max()),
                 "frac_elements_differing": float((d > 0).float().mean())}
+        line["x_bound"] = line["ms"] / b_ms
         emit(line)
         add_call(summary["phased_normalize"], line)
         del y, got, ref, d
@@ -854,13 +902,20 @@ def norm_leaky_phase():
                                      f"(max |d| {float(d.max())})")
             b_ms, b_by = least_ms(moved * x.numel() * x.element_size(), 8 * x.numel())
             line = {"kernel": name, "block": label, "shape": list(shape),
+                    "design": ("one channel per lane, two passes" if "fwd" in name else
+                               norm_leaky.bwd_design(shape[2], x.element_size(), True)),
                     "ms": cuda_ms(kernel), "bound_ms": b_ms, "bound_by": b_by,
+                    "copy_ms": copy_ms(moved * x.numel() * x.element_size()),
                     "plain_ms": cuda_ms(plain), "library_ms": cuda_ms(library[name]),
                     "library": "F.instance_norm then F.leaky_relu, two calls on the (B, C, S) "
                                "view" + ("; autograd through them" if "bwd" in name else ""),
                     "max_abs_diff": float(d.max()),
                     "frac_elements_differing": float((d > 0).float().mean())}
             line["x_bound"] = line["ms"] / b_ms
+            if "bwd" in name:  # the apply pass's row order, both ways
+                line["apply_order_ms"] = {
+                    order: cuda_ms(lambda: norm_leaky._norm_leaky_bwd(g, y, rstd, reverse=rev))
+                    for order, rev in (("reverse", True), ("forward", False))}
             emit(line)
             add_call(summary[name], line)
             del got, ref, d
@@ -1046,7 +1101,18 @@ def main() -> int:
         "dil2_wgmma": {
             "dynamic_smem_bytes": {
                 block: lib.lib.airseg_dil2_wgmma_smem(ci, *pcs.dil2_tile(ci, co)[:4])
-                for block, _, ci, co in CS_DIL2}}}})
+                for block, _, ci, co in CS_DIL2}},
+        "epilogue": {
+            "tma_dynamic_smem_bytes": {
+                f"{form} 8C={c8}": lib.lib.airseg_epilogue_tma_smem(2, form == "phased", c8)
+                for form, c8 in [("gathered", c8) for c8 in (64, 128, 256, 512)] +
+                [("phased", c8) for c8 in (128, 256, 512)]},
+            "ptxas": named_report(ptxas, ("epilogue_kernel", "persistent_ldg_kernel",
+                                          "persistent_tma_kernel"))},
+        "norm_leaky_bwd": {
+            "ring_dynamic_smem_bytes": lib.lib.airseg_norm_leaky_bwd_ring_smem(),
+            "ptxas": named_report(ptxas, ("bwd_ring_kernel", "bwd_sums_kernel",
+                                          "bwd_apply_kernel"))}}})
 
     summary = kernel_phase()
     summary.update(train_kernel_phase())
@@ -1078,7 +1144,8 @@ def main() -> int:
          "replaces": KERNELS[name][0], "launches": launches[name],
          "max_abs_err": agg["max_abs_err"], "ms": agg["ms"], "plain_ms": agg["plain_ms"],
          "bound_ms": agg["bound_ms"], "bound_by": agg["bound_by"],
-         "library_ms": agg["library_ms"]}
+         "library_ms": agg["library_ms"],
+         **{k: agg[k] for k in ("design", "copy_ms") if k in agg}}
         for name, agg in summary.items()]})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

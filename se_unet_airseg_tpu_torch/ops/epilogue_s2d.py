@@ -99,6 +99,129 @@ def phased_normalize_plain(y_ext, scale8, shift8):
     return a.to(y.dtype)
 
 
+# ----------------------------------------------------------- tile walk
+
+# The persistent kernels' designs (csrc/epilogue.cu `Design`), by name.
+DESIGNS = {"per-voxel": 0, "persistent ldg": 1, "persistent tma": 2}
+TILE_BYTES = 16384
+
+
+def epilogue_tile(c8: int, elt: int, phased: bool) -> int:
+    """T, the voxels of one tile of the persistent kernels: about
+    TILE_BYTES of 8C-lane rows, 16 to 64 voxels along x (phased) or 16 to
+    128 rows (gathered); `tile_voxels` in csrc/epilogue.cu."""
+    return max(16, min(TILE_BYTES // (c8 * elt), 64 if phased else 128))
+
+
+def epilogue_tiles_plain(b: int, n: int, tile: int, phased: bool):
+    """The persistent kernels' tile walk (`tile_at` in csrc/epilogue.cu):
+    for each tile index t in order, (b, z, y, x0, count). A phased tile is
+    `count` output voxels (z, y, x0..x0+count-1); a gathered tile is rows
+    x0..x0+count-1 of batch entry b (z = y = 0). Block k of a grid of G
+    takes tiles k, k+G, k+2G, ..."""
+    if phased:
+        tiles_x = -(-n // tile)
+        for t in range(b * n * n * tiles_x):
+            xt, r = t % tiles_x, t // tiles_x
+            yy, r = r % n, r // n
+            z, bb = r % n, r // n
+            yield bb, z, yy, xt * tile, min(tile, n - xt * tile)
+    else:
+        n3 = n ** 3
+        tiles_x = -(-n3 // tile)
+        for t in range(b * tiles_x):
+            x0 = (t % tiles_x) * tile
+            yield t // tiles_x, 0, 0, x0, min(tile, n3 - x0)
+
+
+def _box(y, starts, sizes):
+    """TMA's box read: y[starts : starts + sizes] per dimension, zeros
+    outside y (the tensor map's out-of-bounds fill)."""
+    out = torch.zeros(sizes, dtype=y.dtype)
+    src = tuple(slice(st, min(st + sz, dim)) for st, sz, dim in zip(starts, sizes, y.shape))
+    got = y[src]
+    out[tuple(slice(0, g) for g in got.shape)] = got
+    return out
+
+
+def phased_tma_gather_plain(y_ext, tile: int):
+    """The TMA design's phase gather, tile by tile: per tile the 4 boxes
+    (T+1 voxels x 2C lanes) at y_ext[b, z+a, y+b', x0 : x0+T+1,
+    (4a+2b')C : (4a+2b'+2)C], sub-position (a, b', c) of voxel i read from
+    box (a, b') at voxel i + c, lanes cC : (c+1)C. Returns the gathered
+    (B, n, n, n, 8C) and how often each output voxel was written."""
+    b, m, c8 = y_ext.shape[0], y_ext.shape[1], y_ext.shape[-1]
+    n, c = m - 1, c8 // 8
+    out = torch.zeros((b, n, n, n, c8), dtype=y_ext.dtype)
+    writes = torch.zeros((b, n, n, n), dtype=torch.int64)
+    for bb, z, yy, x0, count in epilogue_tiles_plain(b, n, tile, True):
+        boxes = [_box(y_ext, (bb, z + q // 2, yy + q % 2, x0, 2 * q * c),
+                      (1, 1, 1, tile + 1, 2 * c)).reshape(tile + 1, 2 * c) for q in range(4)]
+        rows = torch.cat([boxes[p // 2][p % 2:p % 2 + count, (p % 2) * c:(p % 2 + 1) * c]
+                          for p in range(8)], dim=-1)
+        out[bb, z, yy, x0:x0 + count] = rows
+        writes[bb, z, yy, x0:x0 + count] += 1
+    return out, writes
+
+
+def gathered_tma_rows_plain(y, tile: int):
+    """The TMA design's reads of the gathered form: per tile 1-2 boxes of
+    (T rows x min(8C, 256) lanes) of y viewed as (B, n^3, 8C). Returns the
+    rows as read, (B, n, n, n, 8C), and how often each was written."""
+    b, n, c8 = y.shape[0], y.shape[1], y.shape[-1]
+    flat = y.reshape(b, n ** 3, c8)
+    lanes = min(c8, 256)
+    out = torch.zeros_like(flat)
+    writes = torch.zeros((b, n ** 3), dtype=torch.int64)
+    for bb, _, _, x0, count in epilogue_tiles_plain(b, n, tile, False):
+        boxes = [_box(flat, (bb, x0, h * lanes), (1, tile, lanes)).reshape(tile, lanes)
+                 for h in range(c8 // lanes)]
+        out[bb, x0:x0 + count] = torch.cat(boxes, dim=-1)[:count]
+        writes[bb, x0:x0 + count] += 1
+    return out.reshape(y.shape), writes.reshape(b, n, n, n)
+
+
+def thread_rows_plain(c8: int, elt: int, tile: int, rows_in_flight: int = 4):
+    """The rows of a tile each thread of a 256-thread block handles, per
+    pass (`i0 + s + u * pass` in csrc/epilogue.cu): a list, per thread, of
+    (row, first lane) pairs; rows past the tile are skipped."""
+    vec = 16 // elt
+    per_row = c8 // vec
+    step = 256 // per_row
+    out = []
+    for tid in range(256):
+        s, j = tid // per_row, tid % per_row
+        out.append([(i0 + s + u * step, j * vec)
+                    for i0 in range(0, tile, step * rows_in_flight)
+                    for u in range(rows_in_flight) if i0 + s + u * step < tile])
+    return out
+
+
+def _tma_strides_ok(y_ext) -> bool:
+    """Whether the phased TMA tensor map can describe y_ext: each stride
+    spans the dimension inside it (x >= 8C lanes, y >= xw voxels, ...)."""
+    m, xw, c8 = y_ext.shape[1], y_ext.shape[3], y_ext.shape[4]
+    sb, sz, sy, sx = (y_ext.stride(i) for i in range(4))
+    return sx >= c8 and sy >= xw * sx and sz >= m * sy and sb >= m * sz
+
+
+def pick_design(y, phased: bool, normalize: bool = False) -> str:
+    """The epilogue design for y, by shape, before the launch (from the
+    H100 timings in PERF.md, PR 9). The new designs are kept where they
+    beat the first port's per-voxel kernel:
+      * gathered form: 16-byte loads for rows of at least 512 bytes; the
+        per-voxel kernel below (bf16 8C <= 128, where the two tie);
+      * phased form: TMA where its boxes' rows (2C lanes) hold at least
+        128 bytes and the tensor map can describe y_ext (nested strides);
+        else 16-byte loads, or for `phased_normalize` the per-voxel
+        kernel."""
+    if not phased:
+        return "persistent ldg" if y.shape[-1] * y.element_size() >= 512 else "per-voxel"
+    if y.shape[-1] // 4 * y.element_size() >= 128 and _tma_strides_ok(y):
+        return "persistent tma"
+    return "per-voxel" if normalize else "persistent ldg"
+
+
 # ------------------------------------------------------------- wrappers
 
 
@@ -121,14 +244,21 @@ def _check_common(y, scale8, shift8, wse, c8):
                 or not wse.is_contiguous() or wse.device != y.device:
             raise ValueError(f"wse must be a contiguous ({wse.shape[0]}, {c}) "
                              f"{y.dtype} tensor on {y.device}")
+        if wse.shape[0] > 2:
+            raise ValueError(f"the kernels take at most 2 SE gates, got {wse.shape[0]}")
     if y.data_ptr() % 16:
         raise ValueError("input must be 16-byte aligned")
     return vec
 
 
-def gathered_epilogue(y, scale8, shift8, wse=None):
+def _design_code(y, phased: bool, design, normalize: bool = False) -> int:
+    return DESIGNS[design or pick_design(y, phased, normalize)]
+
+
+def gathered_epilogue(y, scale8, shift8, wse=None, *, design=None):
     """Gathered epilogue: y (B, n, n, n, 8C) contiguous -> same shape.
-    Replaces gated_norm_finalize_bm / gated_norm_finalize."""
+    Replaces gated_norm_finalize_bm / gated_norm_finalize. `design` (a
+    key of DESIGNS) overrides the shape's choice, for comparisons."""
     if not _on_card(y):
         return gathered_epilogue_plain(y, scale8, shift8, wse)
     b, n, c8 = y.shape[0], y.shape[1], y.shape[-1]
@@ -139,8 +269,9 @@ def gathered_epilogue(y, scale8, shift8, wse=None):
     out = torch.empty_like(y)
     with torch.cuda.device(y.device):
         launch("airseg_gathered_epilogue", "gathered_epilogue",
-               _DTYPE_CODE[y.dtype], y.data_ptr(), out.data_ptr(), scale8.data_ptr(),
-               shift8.data_ptr(), None if wse is None else wse.data_ptr(),
+               _DTYPE_CODE[y.dtype], _design_code(y, False, design), y.data_ptr(),
+               out.data_ptr(), scale8.data_ptr(), shift8.data_ptr(),
+               None if wse is None else wse.data_ptr(),
                0 if wse is None else wse.shape[0], b, n, c8, _stream(y))
     return out
 
@@ -160,36 +291,37 @@ def _check_phased(y_ext, scale8, shift8, wse):
     return b, m - 1, c8, strides
 
 
-def phased_epilogue(y_ext, scale8, shift8, wse=None):
+def phased_epilogue(y_ext, scale8, shift8, wse=None, *, design=None):
     """Phased epilogue: y_ext (B, n+1, n+1, xw, 8C), xw >= n+1, any
     16-byte-aligned strides with a unit channel stride -> gathered
-    (B, n, n, n, 8C). Replaces phased_finalize_bm / phased_finalize."""
+    (B, n, n, n, 8C). Replaces phased_finalize_bm / phased_finalize.
+    `design` as for `gathered_epilogue`."""
     if not _on_card(y_ext):
         return phased_epilogue_plain(y_ext, scale8, shift8, wse)
     b, n, c8, (sb, sz, sy, sx) = _check_phased(y_ext, scale8, shift8, wse)
     out = torch.empty((b, n, n, n, c8), dtype=y_ext.dtype, device=y_ext.device)
     with torch.cuda.device(y_ext.device):
         launch("airseg_phased_epilogue", "phased_epilogue",
-               _DTYPE_CODE[y_ext.dtype], y_ext.data_ptr(), sb, sz, sy, sx,
-               out.data_ptr(), scale8.data_ptr(), shift8.data_ptr(),
-               None if wse is None else wse.data_ptr(),
+               _DTYPE_CODE[y_ext.dtype], _design_code(y_ext, True, design), y_ext.data_ptr(),
+               sb, sz, sy, sx, y_ext.shape[3], out.data_ptr(), scale8.data_ptr(),
+               shift8.data_ptr(), None if wse is None else wse.data_ptr(),
                0 if wse is None else wse.shape[0], b, n, c8, _stream(y_ext))
     return out
 
 
-def phased_normalize(y_ext, scale8, shift8):
+def phased_normalize(y_ext, scale8, shift8, *, design=None):
     """Phase gather + InstanceNorm affine only: y_ext as for
     `phased_epilogue` -> a (B, n, n, n, 8C) = dtype(y * scale8 - shift8).
-    Replaces phased_normalize."""
+    Replaces phased_normalize. `design` as for `gathered_epilogue`."""
     if not _on_card(y_ext):
         return phased_normalize_plain(y_ext, scale8, shift8)
     b, n, c8, (sb, sz, sy, sx) = _check_phased(y_ext, scale8, shift8, None)
     out = torch.empty((b, n, n, n, c8), dtype=y_ext.dtype, device=y_ext.device)
     with torch.cuda.device(y_ext.device):
         launch("airseg_phased_normalize", "phased_normalize",
-               _DTYPE_CODE[y_ext.dtype], y_ext.data_ptr(), sb, sz, sy, sx,
-               out.data_ptr(), scale8.data_ptr(), shift8.data_ptr(), b, n, c8,
-               _stream(y_ext))
+               _DTYPE_CODE[y_ext.dtype], _design_code(y_ext, True, design, normalize=True),
+               y_ext.data_ptr(), sb, sz, sy, sx, y_ext.shape[3], out.data_ptr(),
+               scale8.data_ptr(), shift8.data_ptr(), b, n, c8, _stream(y_ext))
     return out
 
 

@@ -24,12 +24,16 @@ launches in `cuda_lib.launch_counts`.
 
 from __future__ import annotations
 
+from fractions import Fraction
+
+import numpy as np
 import torch
 
 from .cuda_lib import _DTYPE_CODE, F32, _acc, _on_card, _stream, launch
 
 EPS = 1e-5
 SLOPE = 0.01
+REVERSE_APPLY = False  # the backward's apply pass in pass 1's row order (reverse: no gain)
 
 
 # ----------------------------------------------------------- plain versions
@@ -62,6 +66,96 @@ def instance_norm_leaky_bwd_plain(g, y, rstd):
     return dx.to(g.dtype)
 
 
+# ------------------------------------------------ the backward's partition
+
+
+def div_slope_plain(y):
+    """The backward kernels' y / 0.01 (`div_slope` in csrc/norm_leaky.cu)
+    on float32 numpy values: q = RN(y * RN(1 / 0.01)), corrected once by
+    the remainder y - q * 0.01, each fused product-sum rounded once
+    (evaluated exactly in float64 and rational arithmetic); outside
+    2^-100 <= |y| < 2^100 the IEEE quotient. Equal to y / 0.01 in IEEE
+    float32."""
+    f32 = np.float32
+    d, r = f32(SLOPE), f32(1) / f32(SLOPE)
+    y = np.asarray(y, dtype=f32)
+    with np.errstate(over="ignore"):
+        out = (y / d).astype(f32)
+    for i in np.flatnonzero((np.abs(y) >= 2.0 ** -100) & (np.abs(y) < 2.0 ** 100)):
+        q = f32(y.flat[i] * r)
+        rem = _round32(Fraction(float(y.flat[i])) - Fraction(float(q)) * Fraction(float(d)))
+        out.flat[i] = _round32(Fraction(float(q)) + Fraction(float(rem)) * Fraction(float(r)))
+    return out
+
+
+def _round32(x):
+    """The float32 nearest to the rational x (ties to even)."""
+    c = np.float32(float(x))
+    cands = (np.nextafter(c, np.float32(-np.inf)), c, np.nextafter(c, np.float32(np.inf)))
+    return min(cands, key=lambda v: (abs(Fraction(float(v)) - x),
+                                     int(np.float32(v).view(np.uint32)) & 1))
+
+
+def bwd_vector(c: int, elt: int, aligned: bool) -> int:
+    """Channels per thread of the backward kernels: one 16-byte vector
+    where C is a multiple of it and every base is 16-byte aligned, else 1
+    (`bwd` in csrc/norm_leaky.cu)."""
+    v = 16 // elt
+    return v if c % v == 0 and aligned else 1
+
+
+RING_BYTES = 16384  # the ring's stage, per tensor (`kRingBytes`)
+
+
+def bwd_design(c: int, elt: int, aligned: bool) -> str:
+    """The backward kernels' path for C channels of `elt` bytes, chosen
+    by shape before the launch (`bwd_v` in csrc/norm_leaky.cu): a
+    bulk-copy ring where a thread's vector fills 16 bytes and a block row
+    covers whole rows, else register loads of V channels."""
+    v = bwd_vector(c, elt, aligned)
+    if v * elt == 16 and c // v <= 256:
+        return "16-byte vectors, bulk-copy ring, two passes"
+    return f"{v}-channel register loads, two passes"
+
+
+def bwd_partition_plain(b: int, s: int, c: int, elt: int, aligned: bool, blocks: int):
+    """The backward kernels' partition of (B, S, C) over a grid of about
+    `blocks` blocks of 256 threads (`vplan`, `vlane`, `Ring` in
+    csrc/norm_leaky.cu): per block (chunk, channel tile, batch entry) and
+    thread, the (b, row, first channel) of the V-channel vectors it reads,
+    in order. Where V fills 16 bytes and a block row covers whole rows, the
+    block's rows come in ring stages of RING_BYTES per tensor, the thread
+    taking rows slot, slot + pass, ... of each stage; otherwise the thread
+    takes rows r0 + slot, r0 + slot + pass, ... of its chunk. Returns (V,
+    ring, grid, {(block, thread): [...]})."""
+    v = bwd_vector(c, elt, aligned)
+    cv = c // v
+    width = min(cv, 256)
+    step = 256 // width
+    ring = bwd_design(c, elt, aligned).endswith("ring, two passes")
+    ctiles = -(-cv // width)
+    chunks = max(1, min(-(-blocks // (b * ctiles)), -(-s // step)))
+    chunk = -(-s // chunks)
+    grid = (-(-s // chunk), ctiles, b)
+    stage_rows = RING_BYTES // (c * elt)
+    parts = {}
+    for bx in range(grid[0]):
+        r0, r1 = bx * chunk, min(bx * chunk + chunk, s)
+        for by in range(ctiles):
+            for bz in range(b):
+                for tid in range(256):
+                    slot, cvi = tid // width, by * width + tid % width
+                    if slot >= step or cvi >= cv:
+                        continue
+                    if ring:
+                        rows = [r for k0 in range(r0, r1, stage_rows)
+                                for r in range(k0 + slot, min(k0 + stage_rows, r1), step)]
+                    else:
+                        rows = range(r0 + slot, r1, step)
+                    parts[(bx, by, bz), tid] = [(bz, r, cvi * v) for r in rows]
+    return v, ring, grid, parts
+
+
 # ------------------------------------------------------------- wrappers
 
 
@@ -92,7 +186,7 @@ def _norm_leaky_fwd(x):
     return y, rstd
 
 
-def _norm_leaky_bwd(g, y, rstd):
+def _norm_leaky_bwd(g, y, rstd, *, reverse=REVERSE_APPLY):
     if not _on_card(g):
         return instance_norm_leaky_bwd_plain(g, y, rstd)
     g = _check(g, "g")
@@ -106,7 +200,7 @@ def _norm_leaky_bwd(g, y, rstd):
     with torch.cuda.device(g.device):
         launch("airseg_norm_leaky_bwd", "instance_norm_leaky_bwd", _DTYPE_CODE[g.dtype],
                g.data_ptr(), y.data_ptr(), rstd.data_ptr(), dx.data_ptr(), sums.data_ptr(),
-               b, s, c, _stream(g))
+               b, s, c, int(reverse), _stream(g))
     return dx
 
 

@@ -534,3 +534,90 @@ def test_instance_norm_leaky_kernels_match_plain(dev, dtype, b, s, c):
             assert bool(((got.float() - r).abs() <= ulp + 1e-6).all())
         else:
             torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("design", ["persistent ldg", "persistent tma"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,c8,gates,xw", [(1, 65, 128, 1, None), (3, 33, 256, 2, 40),
+                                             (1, 9, 512, 2, None), (3, 5, 64, 0, 9),
+                                             (1, 33, 512, 1, None)])
+def test_persistent_epilogue_designs_match_plain(dev, design, dtype, b, n, c8, gates, xw):
+    """Both persistent designs, gathered and phased, at ragged tiles (no T
+    divides n), xw > n+1 and 0/1/2 gates; K5 exact."""
+    y, scale8, shift8, wse = _inputs(dev, dtype, b, n + 1, c8, gates, xw=xw, seed=n)
+    got = eps.phased_epilogue(y, scale8, shift8, wse, design=design)
+    torch.testing.assert_close(got, eps.phased_epilogue_plain(y, scale8, shift8, wse),
+                               **TOL[dtype])
+    got = eps.phased_normalize(y, scale8, shift8, design=design)
+    torch.testing.assert_close(got, eps.phased_normalize_plain(y, scale8, shift8),
+                               rtol=0, atol=0)
+    yg = y[:, :n, :n, :n].contiguous()
+    got = eps.gathered_epilogue(yg, scale8, shift8, wse, design=design)
+    torch.testing.assert_close(got, eps.gathered_epilogue_plain(yg, scale8, shift8, wse),
+                               **TOL[dtype])
+
+
+def test_phased_epilogue_takes_ldg_where_tma_cannot(dev):
+    """A y_ext whose z stride is below its y stride cannot be a TMA map:
+    the wrapper picks the 16-byte-load design by shape, before the launch."""
+    y, scale8, shift8, wse = _inputs(dev, torch.bfloat16, 2, 10, 256, 2, xw=12, seed=3)
+    swapped = y.transpose(1, 2)
+    assert eps.pick_design(swapped, True) == "persistent ldg"
+    assert eps.pick_design(y, True) == "persistent tma"  # bf16, 2C = 64 lanes: 128-byte rows
+    reset_launch_counts()
+    got = eps.phased_epilogue(swapped, scale8, shift8, wse)
+    torch.cuda.synchronize()
+    assert launch_counts["phased_epilogue"] == 1
+    torch.testing.assert_close(got, eps.phased_epilogue_plain(swapped, scale8, shift8, wse),
+                               **TOL[torch.bfloat16])
+
+
+def _bwd_check(dtype, got, ref):
+    if dtype == torch.bfloat16:
+        r = ref.float()
+        ulp = torch.ldexp(torch.ones_like(r), torch.frexp(r).exponent - 8)
+        assert bool(((got.float() - r).abs() <= ulp + 1e-6).all())
+    else:
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("reverse", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,c", [(1, 7, 3), (2, 1000, 40), (1, 64 ** 3, 256),
+                                   (8, 64 ** 3 * 8, 32)])
+def test_instance_norm_leaky_bwd_at_the_smoke_shapes(dev, dtype, b, s, c, reverse):
+    """The vectorized backward (the scalar path at C = 3) in both apply
+    orders, against its plain version."""
+    g = torch.Generator(device=dev).manual_seed(c)
+    x = (1.5 * torch.randn((b, s, c), generator=g, device=dev) + 0.3).to(dtype)
+    ct = torch.randn((b, s, c), generator=g, device=dev).to(dtype)
+    y, rstd = norm_leaky.instance_norm_leaky_plain(x)
+    dx = norm_leaky._norm_leaky_bwd(ct, y, rstd, reverse=reverse)
+    _bwd_check(dtype, dx, norm_leaky.instance_norm_leaky_bwd_plain(ct, y, rstd))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_instance_norm_leaky_bwd_misaligned_view(dev, dtype):
+    """A base 2 (bf16) or 4 (f32) bytes past a 16-byte boundary: the
+    scalar path, chosen by the pointers before the launch."""
+    b, s, c = 2, 999, 64
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = (torch.randn((b, s, c), generator=g, device=dev) + 0.2).to(dtype)
+    buf = torch.randn((b * s * c + 1,), generator=g, device=dev).to(dtype)
+    ct = buf[1:].view(b, s, c)
+    assert ct.data_ptr() % 16 and ct.is_contiguous()
+    y, rstd = norm_leaky.instance_norm_leaky_plain(x)
+    dx = norm_leaky._norm_leaky_bwd(ct, y, rstd)
+    _bwd_check(dtype, dx, norm_leaky.instance_norm_leaky_bwd_plain(ct, y, rstd))
+
+
+def test_tma_epilogue_rings_of_several_sizes_in_turn(dev):
+    """One kernel instance at three ring sizes, large, small, large: every
+    size asked before stays launchable (the launcher caches the kernel's
+    occupancy per size and never lowers its shared memory limit)."""
+    for n, c8 in ((6, 512), (6, 256), (7, 512)):
+        y, scale8, shift8, wse = _inputs(dev, torch.bfloat16, 2, n + 1, c8, 1, seed=c8)
+        assert eps.pick_design(y, True) == "persistent tma"
+        got = eps.phased_epilogue(y, scale8, shift8, wse)
+        torch.testing.assert_close(got, eps.phased_epilogue_plain(y, scale8, shift8, wse),
+                                   **TOL[torch.bfloat16])
