@@ -9,8 +9,11 @@ Needs one CUDA card and nvcc; exits non-zero without them. Phases:
    the float32 phases;
 2. build: nvcc builds the kernels from the six sources under csrc/,
    one nvcc per source, started together, into one library; the line
-   reports ptxas's registers and spills of every kernel and, for the
-   wgmma kernels of csrc/conv_wgmma.cu (the bf16 `phased_conv_stats`,
+   reports ptxas's registers and spills of every kernel; for the
+   epilogue kernels of csrc/epilogue.cu and the instance_norm_leaky
+   backward their registers and spills by kernel and the dynamic shared
+   memory of the phased TMA ring per 8C and of the backward's bulk-copy
+   ring; for the wgmma kernels of csrc/conv_wgmma.cu (the bf16 `phased_conv_stats`,
    `dil2_dense_conv_stats` and `phased_conv_ungathered`), their registers,
    spills and dynamic shared memory per column tile BN, and for the
    halo-brick wgmma kernel of csrc/dil2_wgmma.cu (the bf16
@@ -19,11 +22,17 @@ Needs one CUDA card and nvcc; exits non-zero without them. Phases:
 3. kernels: the two epilogue kernels against their plain PyTorch
    versions at the 15 call shapes of the inference path (batch 8, bf16),
    with their time (CUDA events, median of 20 launches), the plain
-   version's time and the memory bound of the call;
-4. train kernels: `phased_normalize` at the 5 phased shapes and the
-   fused pool backward at the 2 pool shapes of the train step (batch 8,
-   bf16), the same way, and the pool backward against autograd of
-   `amax` (the library call);
+   version's time, the memory bound of the call, `copy_ms` (20
+   device-to-device `Tensor.copy_` calls of the same read and write bytes:
+   the card's practical floor), the `design` the wrapper picks by shape
+   and `designs_ms`, every design of the form timed on the same inputs
+   (the first port's per-voxel kernel, persistent 16-byte loads,
+   persistent TMA), each held to the chosen design's output first;
+4. train kernels: `phased_normalize` at the 5 phased shapes (with
+   `design`, `copy_ms` and `designs_ms` as in phase 3) and the fused pool
+   backward at the 2 pool shapes of the train step (batch 8, bf16), the
+   same way, and the pool backward against autograd of `amax` (the
+   library call);
 5. model parity: `apply_fast` in float32 on the card (kernels) against
    the same on the CPU (plain versions) and against the reference-layout
    `apply` on the card, 64^3 tiles, batch 2, at the tolerances of
@@ -86,12 +95,14 @@ Needs one CUDA card and nvcc; exits non-zero without them. Phases:
 15. instance_norm_leaky: its forward and backward kernels against their
    plain versions at (1, 64^3, 256) and at the s2d shape of ec3's output,
    (8, 64^3 * 8, 32), bf16, within one bf16 ulp; with ms, the plain
-   version's ms, the memory bound and, as `library_ms`, F.instance_norm
-   then F.leaky_relu (two calls; for the backward, autograd through
-   them). It has no model path: its launches are read from one forward
-   and backward of its s2d entry point under autograd;
-16. a `kernels` JSON line, then the card line, then the last line
-   `{"ok": true, "device": {...}}`.
+   version's ms, the memory bound, `copy_ms`, `design` and, as
+   `library_ms`, F.instance_norm then F.leaky_relu (two calls; for the
+   backward, autograd through them). It has no model path: its launches
+   are read from one forward and backward of its s2d entry point under
+   autograd;
+16. a `kernels` JSON line (each kernel's summed ms, bound, plain and
+   library ms, launches, and for K1/K2/K5 and K7 `design` and `copy_ms`),
+   then the card line, then the last line `{"ok": true, "device": {...}}`.
 
 Any failure raises and exits non-zero.
 """
@@ -260,21 +271,16 @@ def copy_ms(nbytes: int) -> float:
     return ms
 
 
-def design_ms(kernel, *args) -> dict:
-    """ms of each epilogue design (`eps.DESIGNS`) on the same inputs, each
-    checked against the chosen design's output first."""
+def design_ms(kernel, phased: bool, *args) -> dict:
+    """ms of each design of the form (`eps.designs`) on the same inputs,
+    each first held to the chosen design's output (bf16: the four-ulp
+    check, the gate logits may sum in another order)."""
     ref = kernel(*args)
     out = {}
-    for name in eps.DESIGNS:
-        if not torch.equal(kernel(*args, design=name), ref):
-            # the gate logits may sum in another order: hold to the tolerance
-            got = kernel(*args, design=name)
-            if got.dtype == torch.bfloat16:
-                _, ok = bf16_mismatch(got, ref)
-            else:
-                ok = torch.allclose(got, ref, rtol=1e-5, atol=1e-6)
-            if not ok:
-                raise AssertionError(f"design {name} disagrees with the chosen design")
+    for name in eps.designs(phased):
+        got = kernel(*args, design=name)
+        if not bf16_mismatch(got, ref)[1]:
+            raise AssertionError(f"design {name} disagrees with the chosen design")
         out[name] = cuda_ms(lambda: kernel(*args, design=name))
     return out
 
@@ -372,7 +378,8 @@ def kernel_phase():
                     "design": eps.pick_design(y, kind == "phased_epilogue"),
                     "ms": ms, "bound_ms": b_ms, "bound_by": b_by, "plain_ms": plain_ms,
                     "copy_ms": copy_ms(2 * got.numel() * got.element_size()),
-                    "designs_ms": design_ms(kernel, y, scale8, shift8, wse),
+                    "designs_ms": design_ms(kernel, kind == "phased_epilogue", y, scale8,
+                                            shift8, wse),
                     "max_abs_diff": err, "frac_elements_differing": frac}
             line["x_bound"] = ms / b_ms
             emit(line)
@@ -416,7 +423,7 @@ def train_kernel_phase():
                 "bound_ms": b_ms, "bound_by": b_by,
                 "plain_ms": cuda_ms(lambda: eps.phased_normalize_plain(y, scale8, shift8)),
                 "copy_ms": copy_ms(2 * got.numel() * got.element_size()),
-                "designs_ms": design_ms(eps.phased_normalize, y, scale8, shift8),
+                "designs_ms": design_ms(eps.phased_normalize, True, y, scale8, shift8),
                 "max_abs_diff": float(d.max()),
                 "frac_elements_differing": float((d > 0).float().mean())}
         line["x_bound"] = line["ms"] / b_ms
@@ -912,10 +919,6 @@ def norm_leaky_phase():
                     "max_abs_diff": float(d.max()),
                     "frac_elements_differing": float((d > 0).float().mean())}
             line["x_bound"] = line["ms"] / b_ms
-            if "bwd" in name:  # the apply pass's row order, both ways
-                line["apply_order_ms"] = {
-                    order: cuda_ms(lambda: norm_leaky._norm_leaky_bwd(g, y, rstd, reverse=rev))
-                    for order, rev in (("reverse", True), ("forward", False))}
             emit(line)
             add_call(summary[name], line)
             del got, ref, d
@@ -1103,10 +1106,8 @@ def main() -> int:
                 block: lib.lib.airseg_dil2_wgmma_smem(ci, *pcs.dil2_tile(ci, co)[:4])
                 for block, _, ci, co in CS_DIL2}},
         "epilogue": {
-            "tma_dynamic_smem_bytes": {
-                f"{form} 8C={c8}": lib.lib.airseg_epilogue_tma_smem(2, form == "phased", c8)
-                for form, c8 in [("gathered", c8) for c8 in (64, 128, 256, 512)] +
-                [("phased", c8) for c8 in (128, 256, 512)]},
+            "tma_dynamic_smem_bytes": {f"phased 8C={c8}": lib.lib.airseg_epilogue_tma_smem(2, c8)
+                                       for c8 in (128, 256, 512)},
             "ptxas": named_report(ptxas, ("epilogue_kernel", "persistent_ldg_kernel",
                                           "persistent_tma_kernel"))},
         "norm_leaky_bwd": {

@@ -47,12 +47,12 @@
 //     registers, reloaded only when the batch entry changes;
 //   * the gather reads y_ext either with 16-byte loads, kRows rows in
 //     flight per thread (design kLdg; phased reads ask L2 for the 256-byte
-//     block), or through TMA (design kTma): per tile 4 boxes of (T+1 voxels
-//     x 2C lanes), one per (a, b) row of the phased form (lane blocks
+//     block), or, for the phased form, through TMA (design kTma): per tile
+//     4 boxes of (T+1 voxels x 2C lanes), one per (a, b) row (lane blocks
 //     (a, b, 0) and (a, b, 1) are adjacent; c = 0 reads voxels 0..T-1 of
-//     the box, c = 1 voxels 1..T), or 1-2 boxes of T rows x 8C lanes for
-//     the gathered form, into a kStages-deep mbarrier ring, so the next
-//     tiles' bytes are in flight while this one computes and stores;
+//     the box, c = 1 voxels 1..T), into a kStages-deep mbarrier ring, so
+//     the next tiles' bytes are in flight while this one computes and
+//     stores;
 //   * bf16 lanes go in pairs: one packed conversion per two lanes and
 //     e * gate as mul.rn.bf16x2, the same single rounding of the exact
 //     product; the C/V threads of one sub-position reduce a gate logit with
@@ -79,10 +79,9 @@ constexpr int kThreads = 256;
 constexpr int kRows = 4;         // voxel rows a thread has in flight (kLdg)
 constexpr int kStages = 3;       // TMA ring depth
 constexpr int kMaxGates = 2;     // SE gates held in registers
-constexpr int kBoxLanes = 256;   // TMA's largest box extent
 constexpr int kTileBytes = 16384;
 
-enum Design { kPerVoxel = 0, kLdg = 1, kTma = 2 };
+enum Design { kPerVoxel = 0, kLdg = 1, kTma = 2, kTmaBulkStore = 3 };
 
 template <typename T> struct VecWidth;
 template <> struct VecWidth<float> { static constexpr int N = 4; };
@@ -417,49 +416,42 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
-// The ring's layout in dynamic shared memory and the boxes of one tile.
+// The ring's layout in dynamic shared memory: per stage the 4 boxes of a
+// phased tile, each (2C lanes x T+1 voxels).
 struct Ring {
-  int stage_bytes;  // one stage: all boxes of a tile
+  int stage_bytes;  // one stage: the 4 boxes of a tile
   int box_pitch;    // bytes between boxes of a stage (a multiple of 128)
-  int row_pitch;    // bytes between voxels of a box
-  int box_lanes;    // lanes per box row (2C phased, min(8C, 256) gathered)
+  int row_pitch;    // bytes between voxels of a box, 2C lanes
   uint32_t tx_bytes;
 };
 
-// Thread 0: ask TMA for every box of tile t into `stage`.
-template <bool kPhased>
+// Thread 0: ask TMA for the 4 boxes of phased tile t into `stage`: box
+// (a, b) is y_ext[b, z+a, y+b, x0 : x0+T+1, (4a+2b)C : (4a+2b+2)C].
 __device__ __forceinline__ void issue_tile(const CUtensorMap& map, int t, const Geo& g,
                                            const Ring& ring, unsigned char* stage,
                                            uint32_t bar) {
-  const Tile at = tile_at<kPhased>(t, g);
+  const Tile at = tile_at<true>(t, g);
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
                :: "r"(bar), "r"(ring.tx_bytes) : "memory");
   const uint64_t desc = reinterpret_cast<uint64_t>(&map);
-  if (kPhased) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int a = q >> 1, bq = q & 1;
-      asm volatile(
-          "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-          " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];"
-          :: "r"(smem_u32(stage + q * ring.box_pitch)), "l"(desc), "r"(bar),
-             "r"((4 * a + 2 * bq) * g.c), "r"(at.x0), "r"(at.y + bq), "r"(at.z + a), "r"(at.b)
-          : "memory");
-    }
-  } else {
-    for (int h = 0; h * ring.box_lanes < g.c8; ++h)
-      asm volatile(
-          "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-          " [%0], [%1, {%3, %4, %5}], [%2];"
-          :: "r"(smem_u32(stage + h * ring.box_pitch)), "l"(desc), "r"(bar),
-             "r"(h * ring.box_lanes), "r"(at.x0), "r"(at.b)
-          : "memory");
+  for (int q = 0; q < 4; ++q) {
+    const int a = q >> 1, bq = q & 1;
+    asm volatile(
+        "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];"
+        :: "r"(smem_u32(stage + q * ring.box_pitch)), "l"(desc), "r"(bar),
+           "r"((4 * a + 2 * bq) * g.c), "r"(at.x0), "r"(at.y + bq), "r"(at.z + a), "r"(at.b)
+        : "memory");
   }
 }
 
-// kTma: the gather by TMA boxes into a kStages-deep ring; each thread
-// reads its 16-byte vector of each row from shared memory.
-template <typename T, bool kPhased, bool kActivate>
+// kTma (phased form): the gather by TMA boxes into a kStages-deep ring;
+// each thread reads its 16-byte vector of each row from shared memory.
+// With kBulkStore (design kTmaBulkStore) the finished rows go to one of two
+// output tiles in shared memory, which thread 0 stores with one bulk copy
+// (a phased tile's output rows are one contiguous span).
+template <typename T, bool kActivate, bool kBulkStore>
 __global__ void __launch_bounds__(kThreads) persistent_tma_kernel(
     __grid_constant__ const CUtensorMap map, T* __restrict__ out,
     const float* __restrict__ scale8, const float* __restrict__ shift8,
@@ -468,17 +460,15 @@ __global__ void __launch_bounds__(kThreads) persistent_tma_kernel(
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   unsigned char* stages = smem + 128;
+  unsigned char* out_tiles = stages + kStages * ring.stage_bytes;  // kBulkStore: 2 tiles
+  const int out_tile_bytes = g.tile * g.c8 * static_cast<int>(sizeof(T));
   const Lane l = lane_of(g, V);
   const int pass = kThreads >> g.log2_row;
-  // this thread's vector in a stage: box, lane within the box, and for the
-  // phased c = 1 sub-positions one voxel on
-  int off;
-  if (kPhased) {
-    const int cq = l.p & 1;
-    off = (l.p >> 1) * ring.box_pitch + cq * ring.row_pitch + (cq * g.c + l.k * V) * sizeof(T);
-  } else {
-    off = (l.col / ring.box_lanes) * ring.box_pitch + (l.col % ring.box_lanes) * sizeof(T);
-  }
+  // this thread's vector in a stage: box (a, b), its lanes within the box,
+  // and for the c = 1 sub-positions one voxel on
+  const int cq = l.p & 1;
+  const int off =
+      (l.p >> 1) * ring.box_pitch + cq * ring.row_pitch + (cq * g.c + l.k * V) * sizeof(T);
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s)
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(smem_u32(full + s)) : "memory");
@@ -486,7 +476,7 @@ __global__ void __launch_bounds__(kThreads) persistent_tma_kernel(
     for (int s = 0; s < kStages; ++s) {
       const int t = blockIdx.x + s * gridDim.x;
       if (t < g.n_tiles)
-        issue_tile<kPhased>(map, t, g, ring, stages + s * ring.stage_bytes, smem_u32(full + s));
+        issue_tile(map, t, g, ring, stages + s * ring.stage_bytes, smem_u32(full + s));
     }
   }
   __syncthreads();
@@ -496,12 +486,13 @@ __global__ void __launch_bounds__(kThreads) persistent_tma_kernel(
   for (int t = blockIdx.x; t < g.n_tiles; t += gridDim.x, ++it) {
     const int s = it % kStages;
     unsigned char* stage = stages + s * ring.stage_bytes;
-    const Tile at = tile_at<kPhased>(t, g);
+    const Tile at = tile_at<true>(t, g);
     if (at.b != cur_b) {
       k.load(at.b, g, l, scale8, shift8, wse, n_gates);
       cur_b = at.b;
     }
-    T* dst = out + out_row<kPhased>(at, g) * g.c8 + l.col;
+    T* dst = out + out_row<true>(at, g) * g.c8 + l.col;
+    unsigned char* out_tile = out_tiles + (it & 1) * out_tile_bytes;
     mbar_wait(smem_u32(full + s), (it / kStages) & 1);
     const unsigned char* src = stage + off;
     for (int i0 = 0; i0 < g.tile; i0 += pass * kRows) {  // uniform: shuffles inside
@@ -516,14 +507,33 @@ __global__ void __launch_bounds__(kThreads) persistent_tma_kernel(
       for (int u = 0; u < kRows; ++u) {
         const int i = i0 + l.s + u * pass;
         const uint4 o = finish<T, kActivate>(raw[u], k, n_gates, g.log2_tpp);
-        if (i < at.count) *reinterpret_cast<uint4*>(dst + static_cast<int64_t>(i) * g.c8) = o;
+        if (i >= at.count) continue;
+        if (kBulkStore)
+          *reinterpret_cast<uint4*>(out_tile + (i * g.c8 + l.col) * sizeof(T)) = o;
+        else
+          *reinterpret_cast<uint4*>(dst + static_cast<int64_t>(i) * g.c8) = o;
       }
     }
+    if (kBulkStore) {
+      // the rows written through the generic proxy, visible to the bulk
+      // copy; the other tile's store (the previous tile) done reading
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    }
     __syncthreads();  // every thread is done with this stage
-    const int next = t + kStages * gridDim.x;
-    if (threadIdx.x == 0 && next < g.n_tiles)
-      issue_tile<kPhased>(map, next, g, ring, stage, smem_u32(full + s));
+    if (threadIdx.x == 0) {
+      if (kBulkStore) {
+        asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+                     :: "l"(out + out_row<true>(at, g) * g.c8), "r"(smem_u32(out_tile)),
+                        "r"(at.count * g.c8 * static_cast<int>(sizeof(T)))
+                     : "memory");
+        asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      }
+      const int next = t + kStages * gridDim.x;
+      if (next < g.n_tiles) issue_tile(map, next, g, ring, stage, smem_u32(full + s));
+    }
   }
+  if (kBulkStore && threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 // ------------------------------------------------------------------ host
@@ -543,28 +553,22 @@ int tile_voxels(int row_bytes, bool phased) {
   return t < 16 ? 16 : (t > hi ? hi : t);
 }
 
-// The TMA ring of a tile: phased 4 boxes of (2C lanes x T+1 voxels), each
-// padded to 128 bytes; gathered 8C / min(8C, 256) boxes of T rows.
-Ring ring_of(int elt, bool phased, int c8, int tile) {
+// The TMA ring of a phased tile: 4 boxes of (2C lanes x T+1 voxels), each
+// padded to 128 bytes.
+Ring ring_of(int elt, int c8, int tile) {
   Ring ring;
-  if (phased) {
-    ring.box_lanes = c8 / 4;
-    ring.row_pitch = ring.box_lanes * elt;
-    ring.box_pitch = (ring.row_pitch * (tile + 1) + 127) / 128 * 128;
-    ring.stage_bytes = 4 * ring.box_pitch;
-    ring.tx_bytes = 4u * ring.row_pitch * (tile + 1);
-  } else {
-    ring.box_lanes = c8 < kBoxLanes ? c8 : kBoxLanes;
-    ring.row_pitch = ring.box_lanes * elt;
-    ring.box_pitch = ring.row_pitch * tile;
-    ring.stage_bytes = (c8 / ring.box_lanes) * ring.box_pitch;
-    ring.tx_bytes = static_cast<uint32_t>(ring.stage_bytes);
-  }
+  ring.row_pitch = c8 / 4 * elt;
+  ring.box_pitch = (ring.row_pitch * (tile + 1) + 127) / 128 * 128;
+  ring.stage_bytes = 4 * ring.box_pitch;
+  ring.tx_bytes = 4u * ring.row_pitch * (tile + 1);
   return ring;
 }
 
-// the barriers' 128 bytes, then kStages stages
-int tma_smem_bytes(const Ring& ring) { return 128 + kStages * ring.stage_bytes; }
+// the barriers' 128 bytes, then kStages stages, then with a bulk store two
+// output tiles
+int tma_smem_bytes(const Ring& ring, int out_tile_bytes = 0) {
+  return 128 + kStages * ring.stage_bytes + 2 * out_tile_bytes;
+}
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -629,6 +633,39 @@ int persistent_grid(K kernel, int smem, int n_tiles, int& grid) {
   return rc;
 }
 
+// The phased form through TMA: y_ext as a 5-D tensor map (8C, xw, n+1,
+// n+1, B) with its strides, a box (2C lanes, T+1 voxels).
+template <typename T, bool kActivate, bool kBulkStore>
+int launch_tma(const void* y, int64_t sb, int64_t sz, int64_t sy, int64_t sx, int xw,
+               int64_t batch, const Geo& g, T* out, const float* scale8, const float* shift8,
+               const T* wse, int n_gates, cudaStream_t stream) {
+  constexpr int elt = static_cast<int>(sizeof(T));
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const Ring ring = ring_of(elt, g.c8, g.tile);
+  const cuuint64_t dims[5] = {static_cast<cuuint64_t>(g.c8), static_cast<cuuint64_t>(xw),
+                              static_cast<cuuint64_t>(g.n + 1), static_cast<cuuint64_t>(g.n + 1),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[4] = {static_cast<cuuint64_t>(sx * elt), static_cast<cuuint64_t>(sy * elt),
+                                 static_cast<cuuint64_t>(sz * elt), static_cast<cuuint64_t>(sb * elt)};
+  const cuuint32_t box[5] = {static_cast<cuuint32_t>(g.c8 / 4),
+                             static_cast<cuuint32_t>(g.tile + 1), 1, 1, 1};
+  const cuuint32_t estr[5] = {1, 1, 1, 1, 1};
+  CUtensorMap map;
+  if (encode(&map, elt == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+             5, const_cast<void*>(y), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = tma_smem_bytes(ring, kBulkStore ? g.tile * g.c8 * elt : 0);
+  auto kernel = persistent_tma_kernel<T, kActivate, kBulkStore>;
+  int grid = 0;
+  const int rc = persistent_grid(kernel, smem, g.n_tiles, grid);
+  if (rc) return rc;
+  kernel<<<grid, kThreads, smem, stream>>>(map, out, scale8, shift8, wse, n_gates, g, ring);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, bool kPhased, bool kActivate = true>
 int launch(int design, const void* y, int64_t sb, int64_t sz, int64_t sy, int64_t sx, int xw,
            void* out, const float* scale8, const float* shift8, const void* wse, int n_gates,
@@ -674,54 +711,22 @@ int launch(int design, const void* y, int64_t sb, int64_t sz, int64_t sy, int64_
     kernel<<<grid, kThreads, 0, stream>>>(yt, ot, scale8, shift8, wt, n_gates, g);
     return static_cast<int>(cudaGetLastError());
   }
-  if (design != kTma) return static_cast<int>(cudaErrorInvalidValue);
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const CUtensorMapDataType dt =
-      elt == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const Ring ring = ring_of(elt, kPhased, c8, g.tile);
-  CUtensorMap map;
-  CUresult cr;
-  if (kPhased) {
-    // y_ext as (8C, xw, n+1, n+1, B); a box is (2C lanes, T+1 voxels)
-    const cuuint64_t dims[5] = {static_cast<cuuint64_t>(c8), static_cast<cuuint64_t>(xw),
-                                static_cast<cuuint64_t>(n + 1), static_cast<cuuint64_t>(n + 1),
-                                static_cast<cuuint64_t>(batch)};
-    const cuuint64_t strides[4] = {static_cast<cuuint64_t>(sx * elt),
-                                   static_cast<cuuint64_t>(sy * elt),
-                                   static_cast<cuuint64_t>(sz * elt),
-                                   static_cast<cuuint64_t>(sb * elt)};
-    const cuuint32_t box[5] = {static_cast<cuuint32_t>(ring.box_lanes),
-                               static_cast<cuuint32_t>(g.tile + 1), 1, 1, 1};
-    const cuuint32_t estr[5] = {1, 1, 1, 1, 1};
-    cr = encode(&map, dt, 5, const_cast<void*>(y), dims, strides, box, estr,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  } else {
-    // y as (8C, n^3, B); a box is (min(8C, 256) lanes, T rows)
-    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(c8), static_cast<cuuint64_t>(n3),
-                                static_cast<cuuint64_t>(batch)};
-    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(c8) * elt,
-                                   static_cast<cuuint64_t>(n3 * c8 * elt)};
-    const cuuint32_t box[3] = {static_cast<cuuint32_t>(ring.box_lanes),
-                               static_cast<cuuint32_t>(g.tile), 1};
-    const cuuint32_t estr[3] = {1, 1, 1};
-    cr = encode(&map, dt, 3, const_cast<void*>(y), dims, strides, box, estr,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if constexpr (kPhased) {
+    if (design == kTma)
+      return launch_tma<T, kActivate, false>(y, sb, sz, sy, sx, xw, batch, g, ot, scale8, shift8,
+                                             wt, n_gates, stream);
+    if (design == kTmaBulkStore)
+      return launch_tma<T, kActivate, true>(y, sb, sz, sy, sx, xw, batch, g, ot, scale8, shift8,
+                                            wt, n_gates, stream);
   }
-  if (cr != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = tma_smem_bytes(ring);
-  auto kernel = persistent_tma_kernel<T, kPhased, kActivate>;
-  if ((rc = persistent_grid(kernel, smem, g.n_tiles, grid))) return rc;
-  kernel<<<grid, kThreads, smem, stream>>>(map, ot, scale8, shift8, wt, n_gates, g, ring);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; design: 0 per-voxel, 1 persistent
-// 16-byte loads, 2 persistent TMA. Returns a cudaError_t value.
+// 16-byte loads, 2 persistent TMA (phased forms only). Returns a
+// cudaError_t value.
 extern "C" int airseg_gathered_epilogue(int dtype, int design, const void* y, void* out,
                                         const float* scale8, const float* shift8,
                                         const void* wse, int n_gates, long long batch,
@@ -768,8 +773,8 @@ extern "C" int airseg_phased_normalize(int dtype, int design, const void* y_ext,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Dynamic shared memory of the TMA design at element size `elt`, form
-// `phased` (1) or gathered (0), width 8C = c8.
-extern "C" int airseg_epilogue_tma_smem(int elt, int phased, int c8) {
-  return tma_smem_bytes(ring_of(elt, phased != 0, c8, tile_voxels(c8 * elt, phased != 0)));
+// Dynamic shared memory of the TMA design at element size `elt`, width
+// 8C = c8.
+extern "C" int airseg_epilogue_tma_smem(int elt, int c8) {
+  return tma_smem_bytes(ring_of(elt, c8, tile_voxels(c8 * elt, true)));
 }

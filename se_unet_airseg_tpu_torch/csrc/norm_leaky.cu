@@ -320,12 +320,11 @@ __global__ void __launch_bounds__(kVThreads) bwd_sums_kernel(
   }
 }
 
-// Pass 2: dx from g, y, rstd and the sums; with `reverse` each thread walks
-// its rows of pass 1 last to first.
+// Pass 2: dx from g, y, rstd and the sums.
 template <typename T, int V>
 __global__ void __launch_bounds__(kVThreads) bwd_apply_kernel(
     const T* __restrict__ g, const T* __restrict__ y, const float* __restrict__ rstd_in,
-    const float* __restrict__ sums, T* __restrict__ dx, const VGrid gr, int reverse) {
+    const float* __restrict__ sums, T* __restrict__ dx, const VGrid gr) {
   const VLane l = vlane(gr);
   if (!l.live) return;
   const float ns = static_cast<float>(gr.s);
@@ -345,7 +344,7 @@ __global__ void __launch_bounds__(kVThreads) bwd_apply_kernel(
 #pragma unroll
     for (int q = 0; q < kUnroll; ++q)
       if (k0 + q < l.rows) {
-        const int64_t i = base + (reverse ? l.rows - 1 - k0 - q : k0 + q) * step;
+        const int64_t i = base + (k0 + q) * step;
         pg[q] = load_pack<T, V>(g + i);
         py[q] = load_pack<T, V>(y + i);
       }
@@ -360,7 +359,7 @@ __global__ void __launch_bounds__(kVThreads) bwd_apply_kernel(
         const float d = __fsub_rn(__fsub_rn(gy, m1[v]), __fmul_rn(xhat, m2[v]));
         out.v[v] = from_f32<T>(__fmul_rn(rs[v], d));
       }
-      store_pack<T, V>(dx + base + (reverse ? l.rows - 1 - k0 - q : k0 + q) * step, out);
+      store_pack<T, V>(dx + base + (k0 + q) * step, out);
     }
   }
 }
@@ -470,17 +469,15 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
 }
 
 // The ring's walk over a block's rows: stage k holds rows
-// [r0 + k * rows, r0 + (k + 1) * rows) of g and y (fewer in the last), in
-// order, or last to first with `reverse`.
+// [r0 + k * rows, r0 + (k + 1) * rows) of g and y (fewer in the last).
 struct Ring {
   int64_t r0;
   int64_t n;    // rows of the block
   int rows;     // rows per stage, kRingBytes / (C * elt)
   int stages;   // stages of the block
-  int reverse;
 
   __device__ __forceinline__ int64_t first(int k) const {
-    return static_cast<int64_t>(reverse ? stages - 1 - k : k) * rows;
+    return static_cast<int64_t>(k) * rows;
   }
   __device__ __forceinline__ int count(int k) const {
     const int64_t left = n - first(k);
@@ -505,7 +502,7 @@ __device__ __forceinline__ void issue_stage(const Ring& ring, int k, const T* g,
 template <typename T, bool kApply>
 __global__ void __launch_bounds__(kVThreads) bwd_ring_kernel(
     const T* __restrict__ g, const T* __restrict__ y, const float* __restrict__ rstd_in,
-    float* __restrict__ sums, T* __restrict__ dx, const VGrid gr, int reverse) {
+    float* __restrict__ sums, T* __restrict__ dx, const VGrid gr) {
   constexpr int V = 16 / sizeof(T);
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
@@ -516,7 +513,6 @@ __global__ void __launch_bounds__(kVThreads) bwd_ring_kernel(
   ring.n = l.r1 - l.r0;
   ring.rows = kRingBytes / (gr.c * static_cast<int>(sizeof(T)));
   ring.stages = static_cast<int>((ring.n + ring.rows - 1) / ring.rows);
-  ring.reverse = reverse;
   const int64_t bbase = static_cast<int64_t>(blockIdx.z) * gr.s * gr.c;
   const T* gb = g + bbase;
   const T* yb = y + bbase;
@@ -601,7 +597,7 @@ constexpr int kRingSmem = 128 + kRingStages * 2 * kRingBytes;
 
 template <typename T, int V>
 int bwd_v(const T* g, const T* y, const float* rstd, T* dx, float* sums, long long batch,
-          long long s, int c, int reverse, cudaStream_t stream) {
+          long long s, int c, cudaStream_t stream) {
   VGrid gr;
   dim3 grid;
   const bool ring = V * sizeof(T) == 16 && c / V <= kVThreads;
@@ -614,17 +610,15 @@ int bwd_v(const T* g, const T* y, const float* rstd, T* dx, float* sums, long lo
   if (rc == cudaSuccess) rc = vplan<V>(blocks, batch, s, c, gr, grid);
   if (rc != cudaSuccess) return rc;
   if (ring)
-    bwd_ring_kernel<T, false><<<grid, kVThreads, kRingSmem, stream>>>(g, y, rstd, sums, dx, gr,
-                                                                      0);
+    bwd_ring_kernel<T, false><<<grid, kVThreads, kRingSmem, stream>>>(g, y, rstd, sums, dx, gr);
   else
     bwd_sums_kernel<T, V><<<grid, kVThreads, 0, stream>>>(g, y, sums, gr);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   if (ring)
-    bwd_ring_kernel<T, true><<<grid, kVThreads, kRingSmem, stream>>>(g, y, rstd, sums, dx, gr,
-                                                                     reverse);
+    bwd_ring_kernel<T, true><<<grid, kVThreads, kRingSmem, stream>>>(g, y, rstd, sums, dx, gr);
   else
-    bwd_apply_kernel<T, V><<<grid, kVThreads, 0, stream>>>(g, y, rstd, sums, dx, gr, reverse);
+    bwd_apply_kernel<T, V><<<grid, kVThreads, 0, stream>>>(g, y, rstd, sums, dx, gr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -632,15 +626,15 @@ int bwd_v(const T* g, const T* y, const float* rstd, T* dx, float* sums, long lo
 // thread.
 template <typename T>
 int bwd(const void* g, const void* y, const float* rstd, void* dx, float* sums, long long batch,
-        long long s, int c, int reverse, cudaStream_t stream) {
+        long long s, int c, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   const bool vec = c % V == 0 && (reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(y) |
                                   reinterpret_cast<uintptr_t>(dx)) % 16 == 0;
   const T* gt = static_cast<const T*>(g);
   const T* yt = static_cast<const T*>(y);
   T* dt = static_cast<T*>(dx);
-  if (vec) return bwd_v<T, V>(gt, yt, rstd, dt, sums, batch, s, c, reverse, stream);
-  return bwd_v<T, 1>(gt, yt, rstd, dt, sums, batch, s, c, reverse, stream);
+  if (vec) return bwd_v<T, V>(gt, yt, rstd, dt, sums, batch, s, c, stream);
+  return bwd_v<T, 1>(gt, yt, rstd, dt, sums, batch, s, c, stream);
 }
 
 }  // namespace
@@ -657,14 +651,13 @@ extern "C" int airseg_norm_leaky_fwd(int dtype, const void* x, void* y, float* s
 }
 
 // g, y, dx (B, S, C) contiguous, one type; rstd (B, C) f32 from the
-// forward; sums (2, B, C) f32 zeroed by the caller; reverse: the apply
-// pass's row order (1: last to first).
+// forward; sums (2, B, C) f32 zeroed by the caller.
 extern "C" int airseg_norm_leaky_bwd(int dtype, const void* g, const void* y, const float* rstd,
                                      void* dx, float* sums, long long batch, long long s, int c,
-                                     int reverse, void* stream) {
+                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return bwd<float>(g, y, rstd, dx, sums, batch, s, c, reverse, st);
-  if (dtype == 1) return bwd<__nv_bfloat16>(g, y, rstd, dx, sums, batch, s, c, reverse, st);
+  if (dtype == 0) return bwd<float>(g, y, rstd, dx, sums, batch, s, c, st);
+  if (dtype == 1) return bwd<__nv_bfloat16>(g, y, rstd, dx, sums, batch, s, c, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

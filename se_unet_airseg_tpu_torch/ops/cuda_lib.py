@@ -70,7 +70,7 @@ _SIGNATURES = {
     "airseg_gathered_epilogue": [_I, _I, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _P],
     "airseg_phased_epilogue": [_I, _I, _P, _LL, _LL, _LL, _LL, _I, _P, _P, _P, _P, _I,
                                _LL, _I, _I, _P],
-    "airseg_epilogue_tma_smem": [_I, _I, _I],
+    "airseg_epilogue_tma_smem": [_I, _I],
     "airseg_phased_normalize": [_I, _I, _P, _LL, _LL, _LL, _LL, _I, _P, _P, _P, _LL, _I,
                                 _I, _P],
     "airseg_max_pool_s2d_bwd": [_I, _P, _P, _P, _LL, _I, _I, _P],
@@ -85,7 +85,7 @@ _SIGNATURES = {
     "airseg_phased_conv_ext": [_I, _P, _I, _P, _I, _P, _P, _P, _LL, _I, _I, _P],
     "airseg_norm_leaky_fwd": [_I, _P, _P, _P, _P, _LL, _LL, _I, _P],
     "airseg_norm_leaky_bwd_ring_smem": [],
-    "airseg_norm_leaky_bwd": [_I, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P],
+    "airseg_norm_leaky_bwd": [_I, _P, _P, _P, _P, _P, _LL, _LL, _I, _P],
 }
 
 

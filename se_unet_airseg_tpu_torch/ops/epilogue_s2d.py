@@ -16,9 +16,14 @@ points on the inference and train paths are three CUDA kernels here
     the normalized pre-activation that the phased backward reads
     (phased_normalize).
 
-Each wrapper takes its plain PyTorch version (`*_plain`) for a CPU
-tensor only; on a CUDA tensor it launches the kernel or raises. Each
-counts its launches in `cuda_lib.launch_counts`.
+Each kernel has three designs (the first port's per-voxel kernel and
+two persistent ones, 16-byte loads or, for the phased forms, TMA); the
+wrapper picks one by shape before the launch (`pick_design`), and the
+persistent tile walk and TMA boxes are stated in plain Python beside it
+(`epilogue_tiles_plain`, `phased_tma_gather_plain`, `thread_rows_plain`)
+for the CPU tests. Each wrapper takes its plain PyTorch version
+(`*_plain`) for a CPU tensor only; on a CUDA tensor it launches the
+kernel or raises. Each counts its launches in `cuda_lib.launch_counts`.
 
 The block functions compute the InstanceNorm statistics in plain torch
 (f32 sums, f64 for f64 inputs; var = E[y^2] - mean^2 clamped at 0,
@@ -101,8 +106,15 @@ def phased_normalize_plain(y_ext, scale8, shift8):
 
 # ----------------------------------------------------------- tile walk
 
-# The persistent kernels' designs (csrc/epilogue.cu `Design`), by name.
-DESIGNS = {"per-voxel": 0, "persistent ldg": 1, "persistent tma": 2}
+# The kernels' designs (csrc/epilogue.cu `Design`), by name; TMA serves
+# the phased forms only.
+DESIGNS = {"per-voxel": 0, "persistent ldg": 1, "persistent tma": 2,
+           "persistent tma, bulk store": 3}
+
+
+def designs(phased: bool) -> tuple:
+    """The designs of the phased or the gathered form."""
+    return tuple(DESIGNS) if phased else ("per-voxel", "persistent ldg")
 TILE_BYTES = 16384
 
 
@@ -162,23 +174,6 @@ def phased_tma_gather_plain(y_ext, tile: int):
         out[bb, z, yy, x0:x0 + count] = rows
         writes[bb, z, yy, x0:x0 + count] += 1
     return out, writes
-
-
-def gathered_tma_rows_plain(y, tile: int):
-    """The TMA design's reads of the gathered form: per tile 1-2 boxes of
-    (T rows x min(8C, 256) lanes) of y viewed as (B, n^3, 8C). Returns the
-    rows as read, (B, n, n, n, 8C), and how often each was written."""
-    b, n, c8 = y.shape[0], y.shape[1], y.shape[-1]
-    flat = y.reshape(b, n ** 3, c8)
-    lanes = min(c8, 256)
-    out = torch.zeros_like(flat)
-    writes = torch.zeros((b, n ** 3), dtype=torch.int64)
-    for bb, _, _, x0, count in epilogue_tiles_plain(b, n, tile, False):
-        boxes = [_box(flat, (bb, x0, h * lanes), (1, tile, lanes)).reshape(tile, lanes)
-                 for h in range(c8 // lanes)]
-        out[bb, x0:x0 + count] = torch.cat(boxes, dim=-1)[:count]
-        writes[bb, x0:x0 + count] += 1
-    return out.reshape(y.shape), writes.reshape(b, n, n, n)
 
 
 def thread_rows_plain(c8: int, elt: int, tile: int, rows_in_flight: int = 4):
@@ -252,7 +247,11 @@ def _check_common(y, scale8, shift8, wse, c8):
 
 
 def _design_code(y, phased: bool, design, normalize: bool = False) -> int:
-    return DESIGNS[design or pick_design(y, phased, normalize)]
+    design = design or pick_design(y, phased, normalize)
+    if design not in designs(phased):
+        raise ValueError(f"the {'phased' if phased else 'gathered'} form has no design "
+                         f"{design!r}")
+    return DESIGNS[design]
 
 
 def gathered_epilogue(y, scale8, shift8, wse=None, *, design=None):

@@ -17,6 +17,10 @@ points:
     y / 0.01, g' = y >= 0 ? g : 0.01 g, dx = rstd * (g' - mean(g') -
     xhat * mean(g' xhat)), rounded once to g's dtype.
 
+The backward streams 16-byte vectors of g and y through a bulk-copy ring
+in shared memory, or loads them into registers where its rows are wider
+than a block row or C or a base does not allow vectors (`bwd_design`;
+the partition is `bwd_partition_plain`, the division `div_slope_plain`).
 Each wrapper takes its plain PyTorch version (`*_plain`) for a CPU tensor
 only; on a CUDA tensor it launches its kernel or raises. Each counts its
 launches in `cuda_lib.launch_counts`.
@@ -33,7 +37,6 @@ from .cuda_lib import _DTYPE_CODE, F32, _acc, _on_card, _stream, launch
 
 EPS = 1e-5
 SLOPE = 0.01
-REVERSE_APPLY = False  # the backward's apply pass in pass 1's row order (reverse: no gain)
 
 
 # ----------------------------------------------------------- plain versions
@@ -186,7 +189,7 @@ def _norm_leaky_fwd(x):
     return y, rstd
 
 
-def _norm_leaky_bwd(g, y, rstd, *, reverse=REVERSE_APPLY):
+def _norm_leaky_bwd(g, y, rstd):
     if not _on_card(g):
         return instance_norm_leaky_bwd_plain(g, y, rstd)
     g = _check(g, "g")
@@ -200,7 +203,7 @@ def _norm_leaky_bwd(g, y, rstd, *, reverse=REVERSE_APPLY):
     with torch.cuda.device(g.device):
         launch("airseg_norm_leaky_bwd", "instance_norm_leaky_bwd", _DTYPE_CODE[g.dtype],
                g.data_ptr(), y.data_ptr(), rstd.data_ptr(), dx.data_ptr(), sums.data_ptr(),
-               b, s, c, int(reverse), _stream(g))
+               b, s, c, _stream(g))
     return dx
 
 

@@ -536,14 +536,16 @@ def test_instance_norm_leaky_kernels_match_plain(dev, dtype, b, s, c):
             torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("design", ["persistent ldg", "persistent tma"])
+@pytest.mark.parametrize("design", ["persistent ldg", "persistent tma", "per-voxel",
+                                    "persistent tma, bulk store"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,n,c8,gates,xw", [(1, 65, 128, 1, None), (3, 33, 256, 2, 40),
                                              (1, 9, 512, 2, None), (3, 5, 64, 0, 9),
                                              (1, 33, 512, 1, None)])
 def test_persistent_epilogue_designs_match_plain(dev, design, dtype, b, n, c8, gates, xw):
-    """Both persistent designs, gathered and phased, at ragged tiles (no T
-    divides n), xw > n+1 and 0/1/2 gates; K5 exact."""
+    """Every design at ragged tiles (no T divides n), xw > n+1 and 0/1/2
+    gates: phased epilogue and normalize (exact), and the gathered form
+    (which has no TMA design: 16-byte loads in its place)."""
     y, scale8, shift8, wse = _inputs(dev, dtype, b, n + 1, c8, gates, xw=xw, seed=n)
     got = eps.phased_epilogue(y, scale8, shift8, wse, design=design)
     torch.testing.assert_close(got, eps.phased_epilogue_plain(y, scale8, shift8, wse),
@@ -552,7 +554,8 @@ def test_persistent_epilogue_designs_match_plain(dev, design, dtype, b, n, c8, g
     torch.testing.assert_close(got, eps.phased_normalize_plain(y, scale8, shift8),
                                rtol=0, atol=0)
     yg = y[:, :n, :n, :n].contiguous()
-    got = eps.gathered_epilogue(yg, scale8, shift8, wse, design=design)
+    gdesign = design if design in eps.designs(False) else "persistent ldg"
+    got = eps.gathered_epilogue(yg, scale8, shift8, wse, design=gdesign)
     torch.testing.assert_close(got, eps.gathered_epilogue_plain(yg, scale8, shift8, wse),
                                **TOL[dtype])
 
@@ -581,18 +584,18 @@ def _bwd_check(dtype, got, ref):
         torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("reverse", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,c", [(1, 7, 3), (2, 1000, 40), (1, 64 ** 3, 256),
-                                   (8, 64 ** 3 * 8, 32)])
-def test_instance_norm_leaky_bwd_at_the_smoke_shapes(dev, dtype, b, s, c, reverse):
-    """The vectorized backward (the scalar path at C = 3) in both apply
-    orders, against its plain version."""
+                                   (8, 64 ** 3 * 8, 32), (1, 300, 4096)])
+def test_instance_norm_leaky_bwd_at_the_smoke_shapes(dev, dtype, b, s, c):
+    """The backward against its plain version: the bulk-copy ring at the
+    smoke shapes and C = 40, register loads of 16-byte vectors at C = 4096
+    (wider than a block row), one channel per thread at C = 3."""
     g = torch.Generator(device=dev).manual_seed(c)
     x = (1.5 * torch.randn((b, s, c), generator=g, device=dev) + 0.3).to(dtype)
     ct = torch.randn((b, s, c), generator=g, device=dev).to(dtype)
     y, rstd = norm_leaky.instance_norm_leaky_plain(x)
-    dx = norm_leaky._norm_leaky_bwd(ct, y, rstd, reverse=reverse)
+    dx = norm_leaky._norm_leaky_bwd(ct, y, rstd)
     _bwd_check(dtype, dx, norm_leaky.instance_norm_leaky_bwd_plain(ct, y, rstd))
 
 
@@ -621,3 +624,13 @@ def test_tma_epilogue_rings_of_several_sizes_in_turn(dev):
         got = eps.phased_epilogue(y, scale8, shift8, wse)
         torch.testing.assert_close(got, eps.phased_epilogue_plain(y, scale8, shift8, wse),
                                    **TOL[torch.bfloat16])
+
+
+def test_gathered_epilogue_has_no_tma_design(dev):
+    """TMA serves the phased forms only; asking the gathered form for it
+    raises before any launch."""
+    y, scale8, shift8, wse = _inputs(dev, torch.bfloat16, 1, 4, 256, 1)
+    reset_launch_counts()
+    with pytest.raises(ValueError):
+        eps.gathered_epilogue(y, scale8, shift8, wse, design="persistent tma")
+    assert launch_counts["gathered_epilogue"] == 0
