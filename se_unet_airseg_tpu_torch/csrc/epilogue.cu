@@ -81,7 +81,7 @@ constexpr int kStages = 3;       // TMA ring depth
 constexpr int kMaxGates = 2;     // SE gates held in registers
 constexpr int kTileBytes = 16384;
 
-enum Design { kPerVoxel = 0, kLdg = 1, kTma = 2, kTmaBulkStore = 3 };
+enum Design { kPerVoxel = 0, kLdg = 1, kTma = 2 };
 
 template <typename T> struct VecWidth;
 template <> struct VecWidth<float> { static constexpr int N = 4; };
@@ -448,10 +448,7 @@ __device__ __forceinline__ void issue_tile(const CUtensorMap& map, int t, const 
 
 // kTma (phased form): the gather by TMA boxes into a kStages-deep ring;
 // each thread reads its 16-byte vector of each row from shared memory.
-// With kBulkStore (design kTmaBulkStore) the finished rows go to one of two
-// output tiles in shared memory, which thread 0 stores with one bulk copy
-// (a phased tile's output rows are one contiguous span).
-template <typename T, bool kActivate, bool kBulkStore>
+template <typename T, bool kActivate>
 __global__ void __launch_bounds__(kThreads) persistent_tma_kernel(
     __grid_constant__ const CUtensorMap map, T* __restrict__ out,
     const float* __restrict__ scale8, const float* __restrict__ shift8,
@@ -460,8 +457,6 @@ __global__ void __launch_bounds__(kThreads) persistent_tma_kernel(
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   unsigned char* stages = smem + 128;
-  unsigned char* out_tiles = stages + kStages * ring.stage_bytes;  // kBulkStore: 2 tiles
-  const int out_tile_bytes = g.tile * g.c8 * static_cast<int>(sizeof(T));
   const Lane l = lane_of(g, V);
   const int pass = kThreads >> g.log2_row;
   // this thread's vector in a stage: box (a, b), its lanes within the box,
@@ -492,7 +487,6 @@ __global__ void __launch_bounds__(kThreads) persistent_tma_kernel(
       cur_b = at.b;
     }
     T* dst = out + out_row<true>(at, g) * g.c8 + l.col;
-    unsigned char* out_tile = out_tiles + (it & 1) * out_tile_bytes;
     mbar_wait(smem_u32(full + s), (it / kStages) & 1);
     const unsigned char* src = stage + off;
     for (int i0 = 0; i0 < g.tile; i0 += pass * kRows) {  // uniform: shuffles inside
@@ -507,33 +501,14 @@ __global__ void __launch_bounds__(kThreads) persistent_tma_kernel(
       for (int u = 0; u < kRows; ++u) {
         const int i = i0 + l.s + u * pass;
         const uint4 o = finish<T, kActivate>(raw[u], k, n_gates, g.log2_tpp);
-        if (i >= at.count) continue;
-        if (kBulkStore)
-          *reinterpret_cast<uint4*>(out_tile + (i * g.c8 + l.col) * sizeof(T)) = o;
-        else
-          *reinterpret_cast<uint4*>(dst + static_cast<int64_t>(i) * g.c8) = o;
+        if (i < at.count) *reinterpret_cast<uint4*>(dst + static_cast<int64_t>(i) * g.c8) = o;
       }
-    }
-    if (kBulkStore) {
-      // the rows written through the generic proxy, visible to the bulk
-      // copy; the other tile's store (the previous tile) done reading
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
     }
     __syncthreads();  // every thread is done with this stage
-    if (threadIdx.x == 0) {
-      if (kBulkStore) {
-        asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
-                     :: "l"(out + out_row<true>(at, g) * g.c8), "r"(smem_u32(out_tile)),
-                        "r"(at.count * g.c8 * static_cast<int>(sizeof(T)))
-                     : "memory");
-        asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-      }
-      const int next = t + kStages * gridDim.x;
-      if (next < g.n_tiles) issue_tile(map, next, g, ring, stage, smem_u32(full + s));
-    }
+    const int next = t + kStages * gridDim.x;
+    if (threadIdx.x == 0 && next < g.n_tiles)
+      issue_tile(map, next, g, ring, stage, smem_u32(full + s));
   }
-  if (kBulkStore && threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 // ------------------------------------------------------------------ host
@@ -564,11 +539,8 @@ Ring ring_of(int elt, int c8, int tile) {
   return ring;
 }
 
-// the barriers' 128 bytes, then kStages stages, then with a bulk store two
-// output tiles
-int tma_smem_bytes(const Ring& ring, int out_tile_bytes = 0) {
-  return 128 + kStages * ring.stage_bytes + 2 * out_tile_bytes;
-}
+// the barriers' 128 bytes, then kStages stages
+int tma_smem_bytes(const Ring& ring) { return 128 + kStages * ring.stage_bytes; }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -635,7 +607,7 @@ int persistent_grid(K kernel, int smem, int n_tiles, int& grid) {
 
 // The phased form through TMA: y_ext as a 5-D tensor map (8C, xw, n+1,
 // n+1, B) with its strides, a box (2C lanes, T+1 voxels).
-template <typename T, bool kActivate, bool kBulkStore>
+template <typename T, bool kActivate>
 int launch_tma(const void* y, int64_t sb, int64_t sz, int64_t sy, int64_t sx, int xw,
                int64_t batch, const Geo& g, T* out, const float* scale8, const float* shift8,
                const T* wse, int n_gates, cudaStream_t stream) {
@@ -657,8 +629,8 @@ int launch_tma(const void* y, int64_t sb, int64_t sz, int64_t sy, int64_t sx, in
              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = tma_smem_bytes(ring, kBulkStore ? g.tile * g.c8 * elt : 0);
-  auto kernel = persistent_tma_kernel<T, kActivate, kBulkStore>;
+  const int smem = tma_smem_bytes(ring);
+  auto kernel = persistent_tma_kernel<T, kActivate>;
   int grid = 0;
   const int rc = persistent_grid(kernel, smem, g.n_tiles, grid);
   if (rc) return rc;
@@ -713,11 +685,8 @@ int launch(int design, const void* y, int64_t sb, int64_t sz, int64_t sy, int64_
   }
   if constexpr (kPhased) {
     if (design == kTma)
-      return launch_tma<T, kActivate, false>(y, sb, sz, sy, sx, xw, batch, g, ot, scale8, shift8,
-                                             wt, n_gates, stream);
-    if (design == kTmaBulkStore)
-      return launch_tma<T, kActivate, true>(y, sb, sz, sy, sx, xw, batch, g, ot, scale8, shift8,
-                                            wt, n_gates, stream);
+      return launch_tma<T, kActivate>(y, sb, sz, sy, sx, xw, batch, g, ot, scale8, shift8, wt,
+                                      n_gates, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

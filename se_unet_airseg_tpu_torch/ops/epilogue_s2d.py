@@ -108,13 +108,14 @@ def phased_normalize_plain(y_ext, scale8, shift8):
 
 # The kernels' designs (csrc/epilogue.cu `Design`), by name; TMA serves
 # the phased forms only.
-DESIGNS = {"per-voxel": 0, "persistent ldg": 1, "persistent tma": 2,
-           "persistent tma, bulk store": 3}
+DESIGNS = {"per-voxel": 0, "persistent ldg": 1, "persistent tma": 2}
 
 
 def designs(phased: bool) -> tuple:
     """The designs of the phased or the gathered form."""
     return tuple(DESIGNS) if phased else ("per-voxel", "persistent ldg")
+
+
 TILE_BYTES = 16384
 
 

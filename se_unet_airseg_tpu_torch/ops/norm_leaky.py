@@ -76,7 +76,7 @@ def div_slope_plain(y):
     """The backward kernels' y / 0.01 (`div_slope` in csrc/norm_leaky.cu)
     on float32 numpy values: q = RN(y * RN(1 / 0.01)), corrected once by
     the remainder y - q * 0.01, each fused product-sum rounded once
-    (evaluated exactly in float64 and rational arithmetic); outside
+    (evaluated exactly in rational arithmetic); outside
     2^-100 <= |y| < 2^100 the IEEE quotient. Equal to y / 0.01 in IEEE
     float32."""
     f32 = np.float32
@@ -110,15 +110,20 @@ def bwd_vector(c: int, elt: int, aligned: bool) -> int:
 RING_BYTES = 16384  # the ring's stage, per tensor (`kRingBytes`)
 
 
-def bwd_design(c: int, elt: int, aligned: bool) -> str:
-    """The backward kernels' path for C channels of `elt` bytes, chosen
-    by shape before the launch (`bwd_v` in csrc/norm_leaky.cu): a
-    bulk-copy ring where a thread's vector fills 16 bytes and a block row
-    covers whole rows, else register loads of V channels."""
+def bwd_ring(c: int, elt: int, aligned: bool) -> bool:
+    """Whether the backward streams through its bulk-copy ring (chosen by
+    shape before the launch, `bwd_v` in csrc/norm_leaky.cu): where a
+    thread's vector fills 16 bytes and a block row covers whole rows; else
+    it loads V channels into registers."""
     v = bwd_vector(c, elt, aligned)
-    if v * elt == 16 and c // v <= 256:
+    return v * elt == 16 and c // v <= 256
+
+
+def bwd_design(c: int, elt: int, aligned: bool) -> str:
+    """The backward's path, named for the chip_smoke.py lines."""
+    if bwd_ring(c, elt, aligned):
         return "16-byte vectors, bulk-copy ring, two passes"
-    return f"{v}-channel register loads, two passes"
+    return f"{bwd_vector(c, elt, aligned)}-channel register loads, two passes"
 
 
 def bwd_partition_plain(b: int, s: int, c: int, elt: int, aligned: bool, blocks: int):
@@ -135,7 +140,7 @@ def bwd_partition_plain(b: int, s: int, c: int, elt: int, aligned: bool, blocks:
     cv = c // v
     width = min(cv, 256)
     step = 256 // width
-    ring = bwd_design(c, elt, aligned).endswith("ring, two passes")
+    ring = bwd_ring(c, elt, aligned)
     ctiles = -(-cv // width)
     chunks = max(1, min(-(-blocks // (b * ctiles)), -(-s // step)))
     chunk = -(-s // chunks)

@@ -536,8 +536,7 @@ def test_instance_norm_leaky_kernels_match_plain(dev, dtype, b, s, c):
             torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("design", ["persistent ldg", "persistent tma", "per-voxel",
-                                    "persistent tma, bulk store"])
+@pytest.mark.parametrize("design", ["persistent ldg", "persistent tma", "per-voxel"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,n,c8,gates,xw", [(1, 65, 128, 1, None), (3, 33, 256, 2, 40),
                                              (1, 9, 512, 2, None), (3, 5, 64, 0, 9),
