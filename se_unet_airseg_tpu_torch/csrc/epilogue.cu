@@ -427,7 +427,7 @@ struct Ring {
 
 // Thread 0: ask TMA for the 4 boxes of phased tile t into `stage`: box
 // (a, b) is y_ext[b, z+a, y+b, x0 : x0+T+1, (4a+2b)C : (4a+2b+2)C].
-__device__ __forceinline__ void issue_tile(const CUtensorMap& map, int t, const Geo& g,
+__device__ __forceinline__ void fetch_tile(const CUtensorMap& map, int t, const Geo& g,
                                            const Ring& ring, unsigned char* stage,
                                            uint32_t bar) {
   const Tile at = tile_at<true>(t, g);
@@ -471,7 +471,7 @@ __global__ void __launch_bounds__(kThreads) persistent_tma_kernel(
     for (int s = 0; s < kStages; ++s) {
       const int t = blockIdx.x + s * gridDim.x;
       if (t < g.n_tiles)
-        issue_tile(map, t, g, ring, stages + s * ring.stage_bytes, smem_u32(full + s));
+        fetch_tile(map, t, g, ring, stages + s * ring.stage_bytes, smem_u32(full + s));
     }
   }
   __syncthreads();
@@ -507,7 +507,7 @@ __global__ void __launch_bounds__(kThreads) persistent_tma_kernel(
     __syncthreads();  // every thread is done with this stage
     const int next = t + kStages * gridDim.x;
     if (threadIdx.x == 0 && next < g.n_tiles)
-      issue_tile(map, next, g, ring, stage, smem_u32(full + s));
+      fetch_tile(map, next, g, ring, stage, smem_u32(full + s));
   }
 }
 
@@ -547,8 +547,8 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled through the runtime's driver entry point: no
-// link against libcuda.
+// cuTensorMapEncodeTiled looked up through the CUDA runtime
+// (cudaGetDriverEntryPoint), so the library needs no link against libcuda.
 EncodeTiled encode_tiled() {
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {

@@ -486,7 +486,7 @@ struct Ring {
 };
 
 template <typename T>
-__device__ __forceinline__ void issue_stage(const Ring& ring, int k, const T* g, const T* y,
+__device__ __forceinline__ void fetch_stage(const Ring& ring, int k, const T* g, const T* y,
                                             int c, unsigned char* stage, uint32_t bar) {
   const uint32_t bytes = static_cast<uint32_t>(ring.count(k)) * c * sizeof(T);
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
@@ -521,7 +521,7 @@ __global__ void __launch_bounds__(kVThreads) bwd_ring_kernel(
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(smem_u32(full + s)) : "memory");
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     for (int k = 0; k < kRingStages && k < ring.stages; ++k)
-      issue_stage(ring, k, gb, yb, gr.c, stages + 2 * k * kRingBytes, smem_u32(full + k));
+      fetch_stage(ring, k, gb, yb, gr.c, stages + 2 * k * kRingBytes, smem_u32(full + k));
   }
   __syncthreads();
   float u[V], w[V], m1[V], m2[V], rs[V];
@@ -569,7 +569,7 @@ __global__ void __launch_bounds__(kVThreads) bwd_ring_kernel(
     }
     __syncthreads();  // every thread is done with stage s
     if (threadIdx.x == 0 && k + kRingStages < ring.stages)
-      issue_stage(ring, k + kRingStages, gb, yb, gr.c, stage, smem_u32(full + s));
+      fetch_stage(ring, k + kRingStages, gb, yb, gr.c, stage, smem_u32(full + s));
   }
   if (kApply) return;
   // the drained ring holds the block reduction: thread t's channels at t * V

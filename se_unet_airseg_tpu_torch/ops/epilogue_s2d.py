@@ -203,7 +203,7 @@ def _tma_strides_ok(y_ext) -> bool:
 
 def pick_design(y, phased: bool, normalize: bool = False) -> str:
     """The epilogue design for y, by shape, before the launch (from the
-    H100 timings in PERF.md, PR 9). The new designs are kept where they
+    H100 timings in PERF.md). The persistent designs are kept where they
     beat the first port's per-voxel kernel:
       * gathered form: 16-byte loads for rows of at least 512 bytes; the
         per-voxel kernel below (bf16 8C <= 128, where the two tie);
