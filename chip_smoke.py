@@ -175,6 +175,7 @@ CE_DIL2 = [(blk, n, 8 * ci, 8 * co) for blk, n, ci, co in CS_DIL2]
 # instance_norm_leaky: (name, shape) of the shape its docstring names and
 # the s2d form of ec3's output
 NL_SHAPES = [("docstring", (1, 64 ** 3, 256)), ("ec3_s2d", (BATCH, 64 ** 3 * 8, 32))]
+NL_DESIGNS = {"ring3": 1, "ring6": 2, "ring3 one launch": 3, "registers": 4}
 WGMMA_SRC = "se_unet_airseg_tpu_torch/csrc/conv_wgmma.cu"
 DIL2_SRC = "se_unet_airseg_tpu_torch/csrc/dil2_wgmma.cu"
 NL_SRC = "se_unet_airseg_tpu_torch/csrc/norm_leaky.cu"
@@ -907,10 +908,18 @@ def norm_leaky_phase():
             if not bool((d <= bf16_ulp(ref) + 1e-6).all()) or not torch.isfinite(got.float()).all():
                 raise AssertionError(f"{name} {label}: kernel disagrees with its plain version "
                                      f"(max |d| {float(d.max())})")
+            designs = {}
+            for dname, code in NL_DESIGNS.items():
+                dget = (lambda: norm_leaky._norm_leaky_fwd(x, code)[0]) if "fwd" in name else \
+                    (lambda: norm_leaky._norm_leaky_bwd(g, y, rstd, code))
+                dd = (dget().float() - ref.float()).abs()
+                if not bool((dd <= bf16_ulp(ref) + 1e-6).all()):
+                    raise AssertionError(f"{name} {label} {dname}: disagrees with the plain version")
+                designs[dname] = cuda_ms(dget)
             b_ms, b_by = least_ms(moved * x.numel() * x.element_size(), 8 * x.numel())
             line = {"kernel": name, "block": label, "shape": list(shape),
-                    "design": ("one channel per lane, two passes" if "fwd" in name else
-                               norm_leaky.bwd_design(shape[2], x.element_size(), True)),
+                    "design": norm_leaky.design(shape[2], x.element_size(), True),
+                    "designs_ms": designs,
                     "ms": cuda_ms(kernel), "bound_ms": b_ms, "bound_by": b_by,
                     "copy_ms": copy_ms(moved * x.numel() * x.element_size()),
                     "plain_ms": cuda_ms(plain), "library_ms": cuda_ms(library[name]),
@@ -1110,10 +1119,10 @@ def main() -> int:
                                        for c8 in (128, 256, 512)},
             "ptxas": named_report(ptxas, ("epilogue_kernel", "persistent_ldg_kernel",
                                           "persistent_tma_kernel"))},
-        "norm_leaky_bwd": {
-            "ring_dynamic_smem_bytes": lib.lib.airseg_norm_leaky_bwd_ring_smem(),
-            "ptxas": named_report(ptxas, ("bwd_ring_kernel", "bwd_sums_kernel",
-                                          "bwd_apply_kernel"))}}})
+        "norm_leaky": {
+            "ring_dynamic_smem_bytes": {"fwd": lib.lib.airseg_norm_leaky_ring_smem(0),
+                                        "bwd": lib.lib.airseg_norm_leaky_ring_smem(1)},
+            "ptxas": named_report(ptxas, ("ring_kernel", "reg_kernel"))}}})
 
     summary = kernel_phase()
     summary.update(train_kernel_phase())

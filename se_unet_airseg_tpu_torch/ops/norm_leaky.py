@@ -17,10 +17,11 @@ points:
     y / 0.01, g' = y >= 0 ? g : 0.01 g, dx = rstd * (g' - mean(g') -
     xhat * mean(g' xhat)), rounded once to g's dtype.
 
-The backward streams 16-byte vectors of g and y through a bulk-copy ring
-in shared memory, or loads them into registers where its rows are wider
-than a block row or C or a base does not allow vectors (`bwd_design`;
-the partition is `bwd_partition_plain`, the division `div_slope_plain`).
+Both directions stream 16-byte vectors of their inputs (x; g and y)
+through a bulk-copy ring in shared memory, or load them into registers
+where rows are wider than a block row or C or a base does not allow
+vectors (`design`; the partition is `partition_plain`, the division
+`div_slope_plain`).
 Each wrapper takes its plain PyTorch version (`*_plain`) for a CPU tensor
 only; on a CUDA tensor it launches its kernel or raises. Each counts its
 launches in `cuda_lib.launch_counts`.
@@ -69,7 +70,7 @@ def instance_norm_leaky_bwd_plain(g, y, rstd):
     return dx.to(g.dtype)
 
 
-# ------------------------------------------------ the backward's partition
+# ----------------------------------------- the kernels' partition and rules
 
 
 def div_slope_plain(y):
@@ -99,50 +100,52 @@ def _round32(x):
                                      int(np.float32(v).view(np.uint32)) & 1))
 
 
-def bwd_vector(c: int, elt: int, aligned: bool) -> int:
-    """Channels per thread of the backward kernels: one 16-byte vector
+def vector_width(c: int, elt: int, aligned: bool) -> int:
+    """Channels per thread of both directions' kernels: one 16-byte vector
     where C is a multiple of it and every base is 16-byte aligned, else 1
-    (`bwd` in csrc/norm_leaky.cu)."""
+    (`run` in csrc/norm_leaky.cu)."""
     v = 16 // elt
     return v if c % v == 0 and aligned else 1
 
 
-RING_BYTES = 16384  # the ring's stage, per tensor (`kRingBytes`)
+RING_BYTES = 16384  # the ring's stage, per input (`kRingBytes`)
 
 
-def bwd_ring(c: int, elt: int, aligned: bool) -> bool:
-    """Whether the backward streams through its bulk-copy ring (chosen by
-    shape before the launch, `bwd_v` in csrc/norm_leaky.cu): where a
-    thread's vector fills 16 bytes and a block row covers whole rows; else
-    it loads V channels into registers."""
-    v = bwd_vector(c, elt, aligned)
+def uses_ring(c: int, elt: int, aligned: bool) -> bool:
+    """Whether a direction streams through the bulk-copy ring (chosen by
+    shape before the launch, `run` in csrc/norm_leaky.cu): where a thread's
+    vector fills 16 bytes and a block row covers whole rows; else it loads
+    V channels into registers."""
+    v = vector_width(c, elt, aligned)
     return v * elt == 16 and c // v <= 256
 
 
-def bwd_design(c: int, elt: int, aligned: bool) -> str:
-    """The backward's path, named for the chip_smoke.py lines."""
-    if bwd_ring(c, elt, aligned):
+def design(c: int, elt: int, aligned: bool) -> str:
+    """Either direction's form at this shape, named for the chip_smoke.py
+    lines."""
+    if uses_ring(c, elt, aligned):
         return "16-byte vectors, bulk-copy ring, two passes"
-    return f"{bwd_vector(c, elt, aligned)}-channel register loads, two passes"
+    return f"{vector_width(c, elt, aligned)}-channel register loads, two passes"
 
 
-def bwd_partition_plain(b: int, s: int, c: int, elt: int, aligned: bool, blocks: int):
-    """The backward kernels' partition of (B, S, C) over a grid of about
-    `blocks` blocks of 256 threads (`vplan`, `vlane`, `Ring` in
-    csrc/norm_leaky.cu): per block (chunk, channel tile, batch entry) and
-    thread, the (b, row, first channel) of the V-channel vectors it reads,
-    in order. Where V fills 16 bytes and a block row covers whole rows, the
-    block's rows come in ring stages of RING_BYTES per tensor, the thread
-    taking rows slot, slot + pass, ... of each stage; otherwise the thread
-    takes rows r0 + slot, r0 + slot + pass, ... of its chunk. Returns (V,
-    ring, grid, {(block, thread): [...]})."""
-    v = bwd_vector(c, elt, aligned)
+def partition_plain(b: int, s: int, c: int, elt: int, aligned: bool, blocks: int):
+    """Both directions' partition of (B, S, C) over a grid of at most
+    `blocks` blocks of 256 threads where B x channel tiles allow it
+    (`vplan`, `vlane`, `Ring` in csrc/norm_leaky.cu): per block (chunk,
+    channel tile, batch entry) and thread, the (b, row, first channel) of
+    the V-channel vectors it reads, in order, in each pass. Where V fills
+    16 bytes and a block row covers whole rows, the block's rows come in
+    ring stages of RING_BYTES per input, the thread taking rows slot,
+    slot + pass, ... of each stage; otherwise the thread takes rows
+    r0 + slot, r0 + slot + pass, ... of its chunk. Returns (V, ring, grid,
+    {(block, thread): [...]})."""
+    v = vector_width(c, elt, aligned)
     cv = c // v
     width = min(cv, 256)
     step = 256 // width
-    ring = bwd_ring(c, elt, aligned)
+    ring = uses_ring(c, elt, aligned)
     ctiles = -(-cv // width)
-    chunks = max(1, min(-(-blocks // (b * ctiles)), -(-s // step)))
+    chunks = max(1, min(blocks // (b * ctiles), -(-s // step)))
     chunk = -(-s // chunks)
     grid = (-(-s // chunk), ctiles, b)
     stage_rows = RING_BYTES // (c * elt)
@@ -179,22 +182,28 @@ def _check(t, name, like=None):
     return t.contiguous()
 
 
-def _norm_leaky_fwd(x):
+def _sums(b, c, device):
+    """The kernels' zeroed f32 sums (2, B, C), then one word for the grid
+    barrier of a one-launch design."""
+    return torch.zeros(2 * b * c + 1, dtype=F32, device=device)
+
+
+def _norm_leaky_fwd(x, _design=0):
     if not _on_card(x):
         return instance_norm_leaky_plain(x)
     x = _check(x, "x")
     b, s, c = x.shape
     y = torch.empty_like(x)
-    sums = torch.zeros((2, b, c), dtype=F32, device=x.device)
+    sums = _sums(b, c, x.device)
     rstd = torch.empty((b, c), dtype=F32, device=x.device)
     with torch.cuda.device(x.device):
         launch("airseg_norm_leaky_fwd", "instance_norm_leaky_fwd", _DTYPE_CODE[x.dtype],
                x.data_ptr(), y.data_ptr(), sums.data_ptr(), rstd.data_ptr(), b, s, c,
-               _stream(x))
+               _design, _stream(x))
     return y, rstd
 
 
-def _norm_leaky_bwd(g, y, rstd):
+def _norm_leaky_bwd(g, y, rstd, _design=0):
     if not _on_card(g):
         return instance_norm_leaky_bwd_plain(g, y, rstd)
     g = _check(g, "g")
@@ -204,11 +213,11 @@ def _norm_leaky_bwd(g, y, rstd):
         raise ValueError(f"rstd must be a float32 ({b}, {c}) tensor on {g.device}")
     rstd = rstd.contiguous()
     dx = torch.empty_like(g)
-    sums = torch.zeros((2, b, c), dtype=F32, device=g.device)
+    sums = _sums(b, c, g.device)
     with torch.cuda.device(g.device):
         launch("airseg_norm_leaky_bwd", "instance_norm_leaky_bwd", _DTYPE_CODE[g.dtype],
                g.data_ptr(), y.data_ptr(), rstd.data_ptr(), dx.data_ptr(), sums.data_ptr(),
-               b, s, c, _stream(g))
+               b, s, c, _design, _stream(g))
     return dx
 
 

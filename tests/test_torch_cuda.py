@@ -633,3 +633,42 @@ def test_gathered_epilogue_has_no_tma_design(dev):
     with pytest.raises(ValueError):
         eps.gathered_epilogue(y, scale8, shift8, wse, design="persistent tma")
     assert launch_counts["gathered_epilogue"] == 0
+
+
+def _fwd_check(dtype, y, rstd, x):
+    ry, rr = norm_leaky.instance_norm_leaky_plain(x)
+    torch.testing.assert_close(rstd, rr, rtol=1e-5, atol=0)
+    _bwd_check(dtype, y, ry)
+
+
+@pytest.mark.parametrize("design", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,c", [(1, 7, 3), (2, 1000, 40), (1, 64 ** 3, 256),
+                                   (8, 64 ** 3 * 8, 32), (1, 300, 4096), (3, 5, 8)])
+def test_instance_norm_leaky_fwd_at_the_smoke_shapes(dev, dtype, b, s, c, design):
+    """The forward against its plain version, one launch per wrapper call:
+    the bulk-copy ring at the smoke shapes and C = 40, register loads of
+    16-byte vectors at C = 4096 (wider than a block row), one channel per
+    thread at C = 3. y within one bf16 ulp, rstd at rtol 1e-5."""
+    g = torch.Generator(device=dev).manual_seed(c)
+    x = (1.5 * torch.randn((b, s, c), generator=g, device=dev) + 0.3).to(dtype)
+    reset_launch_counts()
+    y, rstd = norm_leaky._norm_leaky_fwd(x, design)
+    torch.cuda.synchronize()
+    assert launch_counts == _counts(instance_norm_leaky_fwd=1)
+    _fwd_check(dtype, y, rstd, x)
+    dx = norm_leaky._norm_leaky_bwd(x, y, rstd, design)
+    _bwd_check(dtype, dx, norm_leaky.instance_norm_leaky_bwd_plain(x, y, rstd))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_instance_norm_leaky_fwd_misaligned_view(dev, dtype):
+    """x based one element past a 16-byte boundary: the scalar path,
+    chosen by the pointers before the launch."""
+    b, s, c = 2, 999, 64
+    g = torch.Generator(device=dev).manual_seed(6)
+    buf = (torch.randn((b * s * c + 1,), generator=g, device=dev) + 0.2).to(dtype)
+    x = buf[1:].view(b, s, c)
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    y, rstd = norm_leaky._norm_leaky_fwd(x)
+    _fwd_check(dtype, y, rstd, x)

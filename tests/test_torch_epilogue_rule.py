@@ -1,5 +1,5 @@
 """The index rules of the persistent epilogue kernels (K1/K2/K5,
-csrc/epilogue.cu) and of the instance_norm_leaky backward (K7,
+csrc/epilogue.cu) and of the instance_norm_leaky kernels (K7,
 csrc/norm_leaky.cu), on the CPU, numpy and torch only.
 
 The persistent kernels walk tiles of T voxels (`epilogue_tiles_plain`);
@@ -7,9 +7,9 @@ the TMA design reads each phased tile as 4 boxes of (T+1 voxels x 2C
 lanes). Gathering through those boxes must give the plain version's gather
 (`torch.cat(phase_windows(y_ext, n))`) exactly and write every output
 voxel once, and every (row, 16-byte vector) of a tile must belong to one
-thread. The backward's partition of (B, S, C) into 16-byte vectors (or
-single channels where C or a base does not allow them) must read every
-element once. Catches an off-by-one in a box or a tail before any card
+thread. K7's partition of (B, S, C) into 16-byte vectors (or single
+channels where C or a base does not allow them), shared by the forward and
+the backward, must read every element once. Catches an off-by-one in a box or a tail before any card
 run."""
 
 import numpy as np
@@ -111,18 +111,20 @@ def test_design_is_chosen_by_shape():
     torch.testing.assert_close(got, torch.cat(phase_windows(swapped, n), dim=-1), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("bwd", [False, True])
 @pytest.mark.parametrize("elt", [2, 4])
 @pytest.mark.parametrize("aligned", [True, False])
 @pytest.mark.parametrize("b,s,c", [(1, 7, 3), (2, 100, 40), (1, 64, 256), (2, 300, 32),
                                    (1, 40, 8), (1, 9, 4096)])
-def test_norm_bwd_partition_reads_every_element_once(b, s, c, elt, aligned):
-    """K7's backward at C = 3, 8, 32, 40, 256 and a C wider than one block
-    row, vectorized and on the scalar path (C % V != 0 or a misaligned
-    base)."""
-    v, ring, grid, parts = norm_leaky.bwd_partition_plain(b, s, c, elt, aligned, blocks=264)
+def test_norm_bwd_partition_reads_every_element_once(b, s, c, elt, aligned, bwd):
+    """K7's shared partition, forward and backward, at C = 3, 8, 32, 40,
+    256 and a C wider than one block row, vectorized and on the scalar path
+    (C % V != 0 or a misaligned base): every element read once per pass,
+    and the grid one wave wherever B x channel tiles leave room."""
+    v, ring, grid, parts = norm_leaky.partition_plain(b, s, c, elt, aligned, blocks=264)
     assert v == (16 // elt if aligned and c % (16 // elt) == 0 else 1)
     assert ring == (v * elt == 16 and c // v <= 256)
-    assert norm_leaky.bwd_ring(c, elt, aligned) == ring
+    assert norm_leaky.uses_ring(c, elt, aligned) == ring
     seen = np.zeros((b, s, c), dtype=np.int64)
     for (block, _), elems in parts.items():
         for bb, row, ch in elems:
@@ -144,7 +146,7 @@ def test_norm_bwd_division_is_ieee_for_every_bf16_value():
 
 
 def test_norm_bwd_vector_width():
-    assert [norm_leaky.bwd_vector(c, 2, True) for c in (3, 8, 12, 32, 40, 256)] == \
+    assert [norm_leaky.vector_width(c, 2, True) for c in (3, 8, 12, 32, 40, 256)] == \
         [1, 8, 1, 8, 8, 8]
-    assert [norm_leaky.bwd_vector(c, 4, True) for c in (3, 8, 12, 40)] == [1, 4, 4, 4]
-    assert norm_leaky.bwd_vector(256, 2, False) == 1
+    assert [norm_leaky.vector_width(c, 4, True) for c in (3, 8, 12, 40)] == [1, 4, 4, 4]
+    assert norm_leaky.vector_width(256, 2, False) == 1
