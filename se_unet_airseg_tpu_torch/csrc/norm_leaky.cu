@@ -620,6 +620,9 @@ int run(const Args<T>& p, long long batch, long long s, int c, int design, cudaS
   if (!vec) return run_reg<T, 1, kBwd>(p, batch, s, c, stream);
   if (c / V > kVThreads || design == 4) return run_reg<T, V, kBwd>(p, batch, s, c, stream);
   if (design == 2) return run_ring<T, kBwd, 6>(p, batch, s, c, false, stream);
+  if (design == 5) return run_ring<T, kBwd, 4>(p, batch, s, c, false, stream);
+  if (design == 6) return run_ring<T, kBwd, 12>(p, batch, s, c, false, stream);
+  if (design == 7) return run_ring<T, kBwd, 6>(p, batch, s, c, true, stream);
   return run_ring<T, kBwd, 3>(p, batch, s, c, design == 3, stream);
 }
 
