@@ -11,9 +11,10 @@ Needs one CUDA card and nvcc; exits non-zero without them. Phases:
    one nvcc per source, started together, into one library; the line
    reports ptxas's registers and spills of every kernel; for the
    epilogue kernels of csrc/epilogue.cu and the instance_norm_leaky
-   backward their registers and spills by kernel and the dynamic shared
-   memory of the phased TMA ring per 8C and of the backward's bulk-copy
-   ring; for the wgmma kernels of csrc/conv_wgmma.cu (the bf16 `phased_conv_stats`,
+   kernels (one set for both directions) their registers and spills by
+   kernel and the dynamic shared memory of the phased TMA ring per 8C and
+   of the norm's bulk-copy ring, with its depth, for each direction; for
+   the wgmma kernels of csrc/conv_wgmma.cu (the bf16 `phased_conv_stats`,
    `dil2_dense_conv_stats` and `phased_conv_ungathered`), their registers,
    spills and dynamic shared memory per column tile BN, and for the
    halo-brick wgmma kernel of csrc/dil2_wgmma.cu (the bf16
@@ -175,8 +176,6 @@ CE_DIL2 = [(blk, n, 8 * ci, 8 * co) for blk, n, ci, co in CS_DIL2]
 # instance_norm_leaky: (name, shape) of the shape its docstring names and
 # the s2d form of ec3's output
 NL_SHAPES = [("docstring", (1, 64 ** 3, 256)), ("ec3_s2d", (BATCH, 64 ** 3 * 8, 32))]
-NL_DESIGNS = {"ring3": 1, "ring6": 2, "ring3 one launch": 3, "registers": 4, "ring4": 5,
-              "ring12": 6, "ring6 one launch": 7}
 WGMMA_SRC = "se_unet_airseg_tpu_torch/csrc/conv_wgmma.cu"
 DIL2_SRC = "se_unet_airseg_tpu_torch/csrc/dil2_wgmma.cu"
 NL_SRC = "se_unet_airseg_tpu_torch/csrc/norm_leaky.cu"
@@ -909,21 +908,10 @@ def norm_leaky_phase():
             if not bool((d <= bf16_ulp(ref) + 1e-6).all()) or not torch.isfinite(got.float()).all():
                 raise AssertionError(f"{name} {label}: kernel disagrees with its plain version "
                                      f"(max |d| {float(d.max())})")
-            designs = {}
-            for dname, code in NL_DESIGNS.items():
-                if "bwd" in name and code in (6, 7):
-                    continue
-                dget = (lambda: norm_leaky._norm_leaky_fwd(x, code)[0]) if "fwd" in name else \
-                    (lambda: norm_leaky._norm_leaky_bwd(g, y, rstd, code))
-                dd = (dget().float() - ref.float()).abs()
-                if not bool((dd <= bf16_ulp(ref) + 1e-6).all()):
-                    raise AssertionError(f"{name} {label} {dname}: disagrees with the plain version")
-                designs[dname] = cuda_ms(dget)
-                designs[dname + " queued"] = cuda_ms(lambda: [dget() for _ in range(10)]) / 10
             b_ms, b_by = least_ms(moved * x.numel() * x.element_size(), 8 * x.numel())
             line = {"kernel": name, "block": label, "shape": list(shape),
-                    "design": norm_leaky.design(shape[2], x.element_size(), True),
-                    "designs_ms": designs,
+                    "design": norm_leaky.design(shape[2], x.element_size(), True,
+                                                bwd="bwd" in name),
                     "ms": cuda_ms(kernel), "bound_ms": b_ms, "bound_by": b_by,
                     "copy_ms": copy_ms(moved * x.numel() * x.element_size()),
                     "plain_ms": cuda_ms(plain), "library_ms": cuda_ms(library[name]),
@@ -1124,8 +1112,9 @@ def main() -> int:
             "ptxas": named_report(ptxas, ("epilogue_kernel", "persistent_ldg_kernel",
                                           "persistent_tma_kernel"))},
         "norm_leaky": {
-            "ring_dynamic_smem_bytes": {"fwd": lib.lib.airseg_norm_leaky_ring_smem(0),
-                                        "bwd": lib.lib.airseg_norm_leaky_ring_smem(1)},
+            "ring_dynamic_smem_bytes": {d: lib.lib.airseg_norm_leaky_ring_smem()
+                                        for d in ("fwd", "bwd")},
+            "ring_stages": {d: norm_leaky.ring_stages(d == "bwd") for d in ("fwd", "bwd")},
             "ptxas": named_report(ptxas, ("ring_kernel", "reg_kernel"))}}})
 
     summary = kernel_phase()

@@ -34,10 +34,10 @@
 //     SM x SMs); each block takes a contiguous row range of one batch entry.
 //   * Ring form: where a block row covers whole rows, the block's range of
 //     each input is one contiguous span. Thread 0 copies it in 16 KB stages
-//     per input with cp.async.bulk into a kRingStages-deep mbarrier ring and
-//     the threads read their vectors from shared memory, so the bytes in
-//     flight do not depend on registers; pass 2 writes 16-byte packed
-//     stores.
+//     per input with cp.async.bulk into a 96 KB mbarrier ring (6 stages of
+//     x, or 3 of g and y; two blocks per SM) and the threads read their
+//     vectors from shared memory, so the bytes in flight do not depend on
+//     registers; pass 2 writes 16-byte packed stores.
 //   * Register form: where rows are wider than a block row, kUnroll rows of
 //     vectors in flight per thread in registers; where C % V != 0 or a base
 //     is not 16-byte aligned, the same with V = 1.
@@ -192,8 +192,7 @@ __device__ __forceinline__ void load_consts(Consts (&k)[V], const float* sums, f
 #pragma unroll
   for (int v = 0; v < V; ++v) {
     const int64_t bc = static_cast<int64_t>(blockIdx.z) * gr.c + l.cvi * V + v;
-    k[v] = channel_consts<kBwd>(__ldcg(sums + bc), __ldcg(sums + bcs + bc),
-                                kBwd ? rstd[bc] : 0.f, ns);
+    k[v] = channel_consts<kBwd>(sums[bc], sums[bcs + bc], kBwd ? rstd[bc] : 0.f, ns);
     if (!kBwd && blockIdx.x == 0 && l.slot == 0) rstd[bc] = k[v].q;
   }
 }
@@ -309,13 +308,18 @@ __global__ void __launch_bounds__(kVThreads) reg_kernel(const Args<T> p, const V
 // Where a block row covers whole rows (C / V <= 256 vectors) and the rows
 // are 16-byte vectors, a block's rows [r0, r1) of each input are one
 // contiguous span: thread 0 copies them in stages of kRingBytes per input
-// with cp.async.bulk into a kStages-deep mbarrier ring.
+// with cp.async.bulk into an mbarrier ring of kRingSlots x kRingBytes =
+// 96 KB: 6 stages of x forward, 3 of g and y backward, two blocks per SM
+// either way. (On an H100 80GB HBM3, 6 and 12 forward stages ran the
+// docstring shape fastest of 3, 4, 6 and 12, and all four tied at ec3's
+// shape: PERF.md, PR 10.)
 constexpr int kRingBytes = 16384;  // per input and stage
+constexpr int kRingSlots = 6;      // stages x inputs
+
+constexpr int ring_stages(bool bwd) { return kRingSlots / (bwd ? 2 : 1); }
 
 // Dynamic shared memory of a ring: the stages' barriers, then the stages.
-constexpr int ring_smem(bool bwd, int stages) {
-  return 128 + stages * (bwd ? 2 : 1) * kRingBytes;
-}
+constexpr int kRingSmem = 128 + kRingSlots * kRingBytes;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -388,25 +392,43 @@ __device__ __forceinline__ uint4 pack16(const float (&o)[16 / sizeof(T)]) {
   return r;
 }
 
-// One walk of the ring over the block's rows: pass 1 (kApply false) adds
-// each vector's terms to u and w, pass 2 writes the outputs. `phase` holds
-// each barrier's parity from one walk to the next.
-template <typename T, bool kBwd, bool kApply, int kStages>
-__device__ __forceinline__ void ring_walk(const Ring& ring, const VLane& l, const VGrid& gr,
-                                          const T* a, const T* b, T* out, unsigned char* stages,
-                                          uint64_t* full, uint32_t& phase,
-                                          float (&u)[16 / sizeof(T)], float (&w)[16 / sizeof(T)],
-                                          const Consts (&kc)[16 / sizeof(T)]) {
+// The ring form over the block's rows of batch entry blockIdx.z: pass 1
+// (kApply false: the sums, one atomicAdd per block and channel) or pass 2
+// (kApply true: the outputs).
+template <typename T, bool kBwd, bool kApply>
+__global__ void __launch_bounds__(kVThreads) ring_kernel(const Args<T> p, const VGrid gr) {
   constexpr int V = 16 / sizeof(T);
+  constexpr int kStages = ring_stages(kBwd);
   constexpr int kStage = (kBwd ? 2 : 1) * kRingBytes;
-  if (threadIdx.x == 0)
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  unsigned char* stages = smem + 128;
+  const VLane l = vlane(gr);
+  Ring ring;
+  ring.r0 = l.r0;
+  ring.n = l.r1 - l.r0;
+  ring.rows = kRingBytes / (gr.c * static_cast<int>(sizeof(T)));
+  ring.stages = static_cast<int>((ring.n + ring.rows - 1) / ring.rows);
+  const int64_t bbase = static_cast<int64_t>(blockIdx.z) * gr.s * gr.c;
+  const T* a = p.a + bbase;
+  const T* b = kBwd ? p.b + bbase : nullptr;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(smem_u32(full + s)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     for (int k = 0; k < kStages && k < ring.stages; ++k)
       fetch_stage<T, kBwd>(ring, k, a, b, gr.c, stages + k * kStage, smem_u32(full + k));
+  }
+  __syncthreads();
+  float u[V], w[V];
+  Consts kc[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) u[v] = w[v] = 0.f;
+  if (kApply && l.live) load_consts<kBwd, V>(kc, p.sums, p.rstd, gr, l);
   for (int k = 0; k < ring.stages; ++k) {
     const int s = k % kStages;
     unsigned char* stage = stages + s * kStage;
-    mbar_wait(smem_u32(full + s), (phase >> s) & 1u);
-    phase ^= 1u << s;
+    mbar_wait(smem_u32(full + s), (k / kStages) & 1);
     const int rows = ring.count(k);
     if (l.live) {
       for (int i = l.slot; i < rows; i += gr.pass) {
@@ -425,80 +447,16 @@ __device__ __forceinline__ void ring_walk(const Ring& ring, const VLane& l, cons
             add_terms<kBwd>(to_f32(pa[v]), to_f32(pb[v]), u[v], w[v]);
         }
         if (kApply)
-          *reinterpret_cast<uint4*>(out + (ring.r0 + ring.first(k) + i) * gr.c + l.cvi * V) =
-              pack16<T>(o);
+          *reinterpret_cast<uint4*>(p.out + bbase + (ring.r0 + ring.first(k) + i) * gr.c +
+                                    l.cvi * V) = pack16<T>(o);
       }
     }
     __syncthreads();  // every thread is done with stage s
     if (threadIdx.x == 0 && k + kStages < ring.stages)
       fetch_stage<T, kBwd>(ring, k + kStages, a, b, gr.c, stage, smem_u32(full + s));
   }
-}
-
-// Block-wide barrier of the whole grid, for a cooperative launch (every
-// block resident): one arrival per block on a zeroed counter, then a wait
-// for all; traps after about 10 s instead of hanging the card.
-__device__ __forceinline__ void grid_barrier(unsigned* arrive, unsigned blocks) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(arrive, 1u);
-    unsigned seen = 0;
-    const long long t0 = clock64();
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(seen) : "l"(arrive) : "memory");
-      if (seen < blocks && clock64() - t0 > (1ll << 34)) __trap();
-    } while (seen < blocks);
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-// The ring form over the block's rows of batch entry blockIdx.z: kPass 1
-// the sums, 2 the outputs, 3 both in one cooperative launch with a grid
-// barrier between them.
-template <typename T, bool kBwd, int kPass, int kStages>
-__global__ void __launch_bounds__(kVThreads) ring_kernel(const Args<T> p, const VGrid gr,
-                                                         unsigned* arrive) {
-  constexpr int V = 16 / sizeof(T);
-  extern __shared__ __align__(128) unsigned char smem[];
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
-  unsigned char* stages = smem + 128;
-  const VLane l = vlane(gr);
-  Ring ring;
-  ring.r0 = l.r0;
-  ring.n = l.r1 - l.r0;
-  ring.rows = kRingBytes / (gr.c * static_cast<int>(sizeof(T)));
-  ring.stages = static_cast<int>((ring.n + ring.rows - 1) / ring.rows);
-  const int64_t bbase = static_cast<int64_t>(blockIdx.z) * gr.s * gr.c;
-  const T* a = p.a + bbase;
-  const T* b = kBwd ? p.b + bbase : nullptr;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(smem_u32(full + s)) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  uint32_t phase = 0;
-  float u[V], w[V];
-  Consts kc[V] = {};
-#pragma unroll
-  for (int v = 0; v < V; ++v) u[v] = w[v] = 0.f;
-  if constexpr (kPass != 2) {
-    ring_walk<T, kBwd, false, kStages>(ring, l, gr, a, b, nullptr, stages, full, phase, u, w, kc);
-    // the drained ring holds the block reduction
-    block_sums<V>(u, w, reinterpret_cast<float*>(stages), p.sums, gr);
-  }
-  if constexpr (kPass == 3) {
-    // the reduction's writes to the ring come before the next bulk copies
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    grid_barrier(arrive, gridDim.x * gridDim.y * gridDim.z);
-  }
-  if constexpr (kPass != 1) {
-    if (l.live) load_consts<kBwd, V>(kc, p.sums, p.rstd, gr, l);
-    ring_walk<T, kBwd, true, kStages>(ring, l, gr, a, b, p.out + bbase, stages, full, phase, u,
-                                      w, kc);
-  }
+  // the drained ring holds the block reduction
+  if (!kApply) block_sums<V>(u, w, reinterpret_cast<float*>(stages), p.sums, gr);
 }
 
 // ------------------------------------------------------------ launches
@@ -509,7 +467,7 @@ __global__ void __launch_bounds__(kVThreads) ring_kernel(const Args<T> p, const 
 // device) and cached, since the queries cost microseconds.
 int wave_blocks(const void* kernel, int smem, int& blocks) {
   struct Known { const void* kernel; int dev, blocks; };
-  static Known known[64];
+  static Known known[32];
   static int n_known = 0;
   static std::mutex mu;
   int dev = 0;
@@ -529,12 +487,11 @@ int wave_blocks(const void* kernel, int smem, int& blocks) {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kVThreads, smem);
   if (e != cudaSuccess) return e;
   blocks = (per_sm > 0 ? per_sm : 1) * sms;
-  if (n_known < 64) known[n_known++] = Known{kernel, dev, blocks};
+  if (n_known < 32) known[n_known++] = Known{kernel, dev, blocks};
   return cudaSuccess;
 }
 
-// One wave over (row chunks, channel tiles, batch): at most `target`
-// blocks wherever batch x channel tiles leave room for one chunk each.
+// One wave (`target` blocks) over (row chunks, channel tiles, batch).
 template <int V>
 int vplan(int64_t target, long long batch, long long s, int c, VGrid& gr, dim3& grid) {
   if (batch <= 0 || s <= 0 || c <= 0 || batch > 65535 || c % V) return cudaErrorInvalidValue;
@@ -545,7 +502,7 @@ int vplan(int64_t target, long long batch, long long s, int c, VGrid& gr, dim3& 
   gr.pass = kVThreads / gr.width;
   const int64_t ctiles = (gr.cv + gr.width - 1) / gr.width;
   if (ctiles > 65535) return cudaErrorInvalidValue;
-  int64_t chunks = target / (batch * ctiles);
+  int64_t chunks = (target + batch * ctiles - 1) / (batch * ctiles);
   const int64_t most = (s + gr.pass - 1) / gr.pass;
   if (chunks > most) chunks = most;
   if (chunks < 1) chunks = 1;
@@ -570,105 +527,80 @@ int run_reg(const Args<T>& p, long long batch, long long s, int c, cudaStream_t 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kBwd, int kStages>
-int run_ring(const Args<T>& p, long long batch, long long s, int c, bool one_launch,
-             cudaStream_t stream) {
+template <typename T, bool kBwd>
+int run_ring(const Args<T>& p, long long batch, long long s, int c, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
-  constexpr int smem = ring_smem(kBwd, kStages);
-  const void* sums_k = reinterpret_cast<const void*>(ring_kernel<T, kBwd, 1, kStages>);
-  const void* apply_k = reinterpret_cast<const void*>(ring_kernel<T, kBwd, 2, kStages>);
-  const void* both_k = reinterpret_cast<const void*>(ring_kernel<T, kBwd, 3, kStages>);
   VGrid gr;
   dim3 grid;
   int blocks = 0, unused = 0;
-  int rc;
-  if (one_launch) {
-    rc = wave_blocks(both_k, smem, blocks);
-    if (rc == cudaSuccess) rc = vplan<V>(blocks, batch, s, c, gr, grid);
-    if (rc != cudaSuccess) return rc;
-    if (static_cast<int64_t>(grid.x) * grid.y * grid.z <= blocks) {
-      Args<T> pa = p;
-      unsigned* arrive = reinterpret_cast<unsigned*>(p.sums + 2 * batch * c);
-      void* args[] = {&pa, &gr, &arrive};
-      return static_cast<int>(
-          cudaLaunchCooperativeKernel(both_k, grid, dim3(kVThreads), args, smem, stream));
-    }
-  }
-  rc = wave_blocks(sums_k, smem, blocks);
+  int rc = wave_blocks(reinterpret_cast<const void*>(ring_kernel<T, kBwd, false>), kRingSmem,
+                       blocks);
   if (rc == cudaSuccess)  // sets the apply kernel's shared memory limit
-    rc = wave_blocks(apply_k, smem, unused);
+    rc = wave_blocks(reinterpret_cast<const void*>(ring_kernel<T, kBwd, true>), kRingSmem,
+                     unused);
   if (rc == cudaSuccess) rc = vplan<V>(blocks, batch, s, c, gr, grid);
   if (rc != cudaSuccess) return rc;
-  ring_kernel<T, kBwd, 1, kStages><<<grid, kVThreads, smem, stream>>>(p, gr, nullptr);
+  ring_kernel<T, kBwd, false><<<grid, kVThreads, kRingSmem, stream>>>(p, gr);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  ring_kernel<T, kBwd, 2, kStages><<<grid, kVThreads, smem, stream>>>(p, gr, nullptr);
+  ring_kernel<T, kBwd, true><<<grid, kVThreads, kRingSmem, stream>>>(p, gr);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The form by shape: 16-byte vectors where C and every base allow them
-// (through the ring where a block row covers whole rows), else one channel
-// per thread. design (for timing): 0 by shape, 1 the 3-stage ring, 2 a
-// 6-stage ring, 3 the 3-stage ring in one cooperative launch, 4 the
-// register form.
+// The form by shape: 16-byte vectors where C and every base allow them,
+// through the ring where a block row covers whole rows; else one channel
+// per thread.
 template <typename T, bool kBwd>
-int run(const Args<T>& p, long long batch, long long s, int c, int design, cudaStream_t stream) {
+int run(const Args<T>& p, long long batch, long long s, int c, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   const bool vec = c % V == 0 && (reinterpret_cast<uintptr_t>(p.a) |
                                   reinterpret_cast<uintptr_t>(p.b) |
                                   reinterpret_cast<uintptr_t>(p.out)) % 16 == 0;
   if (!vec) return run_reg<T, 1, kBwd>(p, batch, s, c, stream);
-  if (c / V > kVThreads || design == 4) return run_reg<T, V, kBwd>(p, batch, s, c, stream);
-  if (design == 2) return run_ring<T, kBwd, 6>(p, batch, s, c, false, stream);
-  if (design == 5) return run_ring<T, kBwd, 4>(p, batch, s, c, false, stream);
-  if (design == 6) return run_ring<T, kBwd, 12>(p, batch, s, c, false, stream);
-  if (design == 7) return run_ring<T, kBwd, 6>(p, batch, s, c, true, stream);
-  return run_ring<T, kBwd, 3>(p, batch, s, c, design == 3, stream);
+  if (c / V > kVThreads) return run_reg<T, V, kBwd>(p, batch, s, c, stream);
+  return run_ring<T, kBwd>(p, batch, s, c, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t value.
-// x, y (B, S, C) contiguous; sums (2, B, C) f32 and one word after them,
-// zeroed by the caller; rstd (B, C) f32 out.
+// x, y (B, S, C) contiguous; sums (2, B, C) f32 zeroed by the caller;
+// rstd (B, C) f32 out.
 extern "C" int airseg_norm_leaky_fwd(int dtype, const void* x, void* y, float* sums, float* rstd,
-                                     long long batch, long long s, int c, int design,
-                                     void* stream) {
+                                     long long batch, long long s, int c, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return run<float, false>(Args<float>{static_cast<const float*>(x), nullptr,
                                          static_cast<float*>(y), rstd, sums},
-                             batch, s, c, design, st);
+                             batch, s, c, st);
   if (dtype == 1)
     return run<__nv_bfloat16, false>(
         Args<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(x), nullptr,
                             static_cast<__nv_bfloat16*>(y), rstd, sums},
-        batch, s, c, design, st);
+        batch, s, c, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // g, y, dx (B, S, C) contiguous, one type; rstd (B, C) f32 from the
-// forward; sums (2, B, C) f32 and one word after them, zeroed by the
-// caller.
+// forward; sums (2, B, C) f32 zeroed by the caller.
 extern "C" int airseg_norm_leaky_bwd(int dtype, const void* g, const void* y, const float* rstd,
                                      void* dx, float* sums, long long batch, long long s, int c,
-                                     int design, void* stream) {
+                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* rs = const_cast<float*>(rstd);  // read only: the backward does not write rstd
   if (dtype == 0)
     return run<float, true>(Args<float>{static_cast<const float*>(g),
                                         static_cast<const float*>(y), static_cast<float*>(dx),
                                         rs, sums},
-                            batch, s, c, design, st);
+                            batch, s, c, st);
   if (dtype == 1)
     return run<__nv_bfloat16, true>(
         Args<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(g),
                             static_cast<const __nv_bfloat16*>(y),
                             static_cast<__nv_bfloat16*>(dx), rs, sums},
-        batch, s, c, design, st);
+        batch, s, c, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Dynamic shared memory of a direction's ring kernels (bwd: 0 forward, 1
-// backward).
-extern "C" int airseg_norm_leaky_ring_smem(int bwd) { return ring_smem(bwd != 0, 3); }
+// Dynamic shared memory of the ring kernels, both directions.
+extern "C" int airseg_norm_leaky_ring_smem() { return kRingSmem; }

@@ -83,9 +83,9 @@ _SIGNATURES = {
     "airseg_dil2_wgmma_smem": [_I, _I, _I, _I],
     "airseg_dil2_dense_conv_stats": [_I, _P, _I, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "airseg_phased_conv_ext": [_I, _P, _I, _P, _I, _P, _P, _P, _LL, _I, _I, _P],
-    "airseg_norm_leaky_fwd": [_I, _P, _P, _P, _P, _LL, _LL, _I, _I, _P],
-    "airseg_norm_leaky_ring_smem": [_I],
-    "airseg_norm_leaky_bwd": [_I, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P],
+    "airseg_norm_leaky_fwd": [_I, _P, _P, _P, _P, _LL, _LL, _I, _P],
+    "airseg_norm_leaky_ring_smem": [],
+    "airseg_norm_leaky_bwd": [_I, _P, _P, _P, _P, _P, _LL, _LL, _I, _P],
 }
 
 

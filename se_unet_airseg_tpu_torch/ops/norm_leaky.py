@@ -109,43 +109,48 @@ def vector_width(c: int, elt: int, aligned: bool) -> int:
 
 
 RING_BYTES = 16384  # the ring's stage, per input (`kRingBytes`)
+RING_SLOTS = 6      # stages x inputs: a 96 KB ring (`kRingSlots`)
+
+
+def ring_stages(bwd: bool) -> int:
+    """The ring's depth: 6 stages of x forward, 3 of g and y backward."""
+    return RING_SLOTS // (2 if bwd else 1)
 
 
 def uses_ring(c: int, elt: int, aligned: bool) -> bool:
-    """Whether a direction streams through the bulk-copy ring (chosen by
+    """Whether the kernels stream through the bulk-copy ring (chosen by
     shape before the launch, `run` in csrc/norm_leaky.cu): where a thread's
-    vector fills 16 bytes and a block row covers whole rows; else it loads
-    V channels into registers."""
+    vector fills 16 bytes and a block row covers whole rows; else they
+    load V channels into registers."""
     v = vector_width(c, elt, aligned)
     return v * elt == 16 and c // v <= 256
 
 
-def design(c: int, elt: int, aligned: bool) -> str:
-    """Either direction's form at this shape, named for the chip_smoke.py
+def design(c: int, elt: int, aligned: bool, bwd: bool) -> str:
+    """A direction's form at this shape, named for the chip_smoke.py
     lines."""
     if uses_ring(c, elt, aligned):
-        return "16-byte vectors, bulk-copy ring, two passes"
+        return f"16-byte vectors, bulk-copy ring of {ring_stages(bwd)} stages, two passes"
     return f"{vector_width(c, elt, aligned)}-channel register loads, two passes"
 
 
 def partition_plain(b: int, s: int, c: int, elt: int, aligned: bool, blocks: int):
-    """Both directions' partition of (B, S, C) over a grid of at most
-    `blocks` blocks of 256 threads where B x channel tiles allow it
-    (`vplan`, `vlane`, `Ring` in csrc/norm_leaky.cu): per block (chunk,
-    channel tile, batch entry) and thread, the (b, row, first channel) of
-    the V-channel vectors it reads, in order, in each pass. Where V fills
-    16 bytes and a block row covers whole rows, the block's rows come in
-    ring stages of RING_BYTES per input, the thread taking rows slot,
-    slot + pass, ... of each stage; otherwise the thread takes rows
-    r0 + slot, r0 + slot + pass, ... of its chunk. Returns (V, ring, grid,
-    {(block, thread): [...]})."""
+    """Both directions' partition of (B, S, C) over a grid of about
+    `blocks` blocks of 256 threads (`vplan`, `vlane`, `ring_kernel` in
+    csrc/norm_leaky.cu): per block (chunk, channel tile, batch entry) and
+    thread, the (b, row, first channel) of the V-channel vectors it reads,
+    in order, in each pass. Where V fills 16 bytes and a block row covers
+    whole rows, the block's rows come in ring stages of RING_BYTES per
+    input, the thread taking rows slot, slot + pass, ... of each stage;
+    otherwise the thread takes rows r0 + slot, r0 + slot + pass, ... of its
+    chunk. Returns (V, ring, grid, {(block, thread): [...]})."""
     v = vector_width(c, elt, aligned)
     cv = c // v
     width = min(cv, 256)
     step = 256 // width
     ring = uses_ring(c, elt, aligned)
     ctiles = -(-cv // width)
-    chunks = max(1, min(blocks // (b * ctiles), -(-s // step)))
+    chunks = max(1, min(-(-blocks // (b * ctiles)), -(-s // step)))
     chunk = -(-s // chunks)
     grid = (-(-s // chunk), ctiles, b)
     stage_rows = RING_BYTES // (c * elt)
@@ -182,28 +187,22 @@ def _check(t, name, like=None):
     return t.contiguous()
 
 
-def _sums(b, c, device):
-    """The kernels' zeroed f32 sums (2, B, C), then one word for the grid
-    barrier of a one-launch design."""
-    return torch.zeros(2 * b * c + 1, dtype=F32, device=device)
-
-
-def _norm_leaky_fwd(x, _design=0):
+def _norm_leaky_fwd(x):
     if not _on_card(x):
         return instance_norm_leaky_plain(x)
     x = _check(x, "x")
     b, s, c = x.shape
     y = torch.empty_like(x)
-    sums = _sums(b, c, x.device)
+    sums = torch.zeros((2, b, c), dtype=F32, device=x.device)
     rstd = torch.empty((b, c), dtype=F32, device=x.device)
     with torch.cuda.device(x.device):
         launch("airseg_norm_leaky_fwd", "instance_norm_leaky_fwd", _DTYPE_CODE[x.dtype],
                x.data_ptr(), y.data_ptr(), sums.data_ptr(), rstd.data_ptr(), b, s, c,
-               _design, _stream(x))
+               _stream(x))
     return y, rstd
 
 
-def _norm_leaky_bwd(g, y, rstd, _design=0):
+def _norm_leaky_bwd(g, y, rstd):
     if not _on_card(g):
         return instance_norm_leaky_bwd_plain(g, y, rstd)
     g = _check(g, "g")
@@ -213,11 +212,11 @@ def _norm_leaky_bwd(g, y, rstd, _design=0):
         raise ValueError(f"rstd must be a float32 ({b}, {c}) tensor on {g.device}")
     rstd = rstd.contiguous()
     dx = torch.empty_like(g)
-    sums = _sums(b, c, g.device)
+    sums = torch.zeros((2, b, c), dtype=F32, device=g.device)
     with torch.cuda.device(g.device):
         launch("airseg_norm_leaky_bwd", "instance_norm_leaky_bwd", _DTYPE_CODE[g.dtype],
                g.data_ptr(), y.data_ptr(), rstd.data_ptr(), dx.data_ptr(), sums.data_ptr(),
-               b, s, c, _design, _stream(g))
+               b, s, c, _stream(g))
     return dx
 
 

@@ -117,14 +117,18 @@ def test_design_is_chosen_by_shape():
 @pytest.mark.parametrize("b,s,c", [(1, 7, 3), (2, 100, 40), (1, 64, 256), (2, 300, 32),
                                    (1, 40, 8), (1, 9, 4096)])
 def test_norm_bwd_partition_reads_every_element_once(b, s, c, elt, aligned, bwd):
-    """K7's shared partition, forward and backward, at C = 3, 8, 32, 40,
-    256 and a C wider than one block row, vectorized and on the scalar path
-    (C % V != 0 or a misaligned base): every element read once per pass,
-    and the grid one wave wherever B x channel tiles leave room."""
+    """K7's partition, shared by the forward and the backward, at C = 3, 8,
+    32, 40, 256 and a C wider than one block row, vectorized and on the
+    scalar path (C % V != 0 or a misaligned base): every element read once
+    per pass; and each direction's form at that shape (the ring, 16-byte
+    register loads, or one channel per thread)."""
     v, ring, grid, parts = norm_leaky.partition_plain(b, s, c, elt, aligned, blocks=264)
     assert v == (16 // elt if aligned and c % (16 // elt) == 0 else 1)
     assert ring == (v * elt == 16 and c // v <= 256)
     assert norm_leaky.uses_ring(c, elt, aligned) == ring
+    want = (f"16-byte vectors, bulk-copy ring of {6 if not bwd else 3} stages, two passes"
+            if ring else f"{v}-channel register loads, two passes")
+    assert norm_leaky.design(c, elt, aligned, bwd) == want
     seen = np.zeros((b, s, c), dtype=np.int64)
     for (block, _), elems in parts.items():
         for bb, row, ch in elems:
