@@ -316,7 +316,7 @@ __global__ void __launch_bounds__(kVThreads) reg_kernel(const Args<T> p, const V
 constexpr int kRingBytes = 16384;  // per input and stage
 constexpr int kRingSlots = 6;      // stages x inputs
 
-constexpr int ring_stages(bool bwd) { return kRingSlots / (bwd ? 2 : 1); }
+__host__ __device__ constexpr int ring_stages(bool bwd) { return kRingSlots / (bwd ? 2 : 1); }
 
 // Dynamic shared memory of a ring: the stages' barriers, then the stages.
 constexpr int kRingSmem = 128 + kRingSlots * kRingBytes;
