@@ -23,7 +23,9 @@
 // backward reads g and y and writes dx, at a few f32 operations each. Pass
 // 1 reads the inputs once more, and neither (B, S, C) tensor fits in the
 // 50 MB L2 at the shapes that matter: the two-pass floor is 3/2 of the
-// bound's bytes forward and 5/3 backward.
+// bound's bytes forward and 5/3 backward. In bf16 at 3.35 TB/s (H100 SXM)
+// the forward's bound is 0.080 ms at (1, 64^3, 256) and 0.641 ms at ec3's
+// s2d output (8, 64^3 * 8, 32), its two-pass floor 0.120 and 0.962 ms.
 //
 // One set of kernels serves both directions, templated on the direction
 // (`kBwd`: one input x or two, g and y):

@@ -9,8 +9,8 @@ lanes). Gathering through those boxes must give the plain version's gather
 voxel once, and every (row, 16-byte vector) of a tile must belong to one
 thread. K7's partition of (B, S, C) into 16-byte vectors (or single
 channels where C or a base does not allow them), shared by the forward and
-the backward, must read every element once. Catches an off-by-one in a box or a tail before any card
-run."""
+the backward, must read every element once. Catches an off-by-one in a
+box or a tail before any card run."""
 
 import numpy as np
 import pytest
