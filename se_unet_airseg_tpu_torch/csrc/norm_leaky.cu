@@ -314,7 +314,7 @@ __global__ void __launch_bounds__(kVThreads) reg_kernel(const Args<T> p, const V
 // 96 KB: 6 stages of x forward, 3 of g and y backward, two blocks per SM
 // either way. (On an H100 80GB HBM3, 6 and 12 forward stages ran the
 // docstring shape fastest of 3, 4, 6 and 12, and all four tied at ec3's
-// shape: PERF.md, PR 10.)
+// shape; PERF.md has the figures.)
 constexpr int kRingBytes = 16384;  // per input and stage
 constexpr int kRingSlots = 6;      // stages x inputs
 
