@@ -55,7 +55,31 @@ Needs one CUDA card and nvcc; exits non-zero without them. Phases:
    lumen label): one warm-up step, then TRAIN_STEPS timed steps; the
    launches must read 10/5/5/2 per step, every loss must be finite and
    the batch's loss under one fixed set of DropLayer draws must fall;
-9. conv_stats kernels: `phased_conv_stats` (the wgmma kernel, `design`
+9. engine path: the inference entry points (`infer/engine.py`) at full
+   width, bf16, the weights of phase 6, in a temporary directory.
+   `network_prediction` on the phantom written as a raw-HU NIfTI, with
+   cli.predict's defaults (cube 128, step 64, the runner's batch 1):
+   seconds by step (preprocess, device from the upload through the trit
+   codec, decode, DTI, border suppression + maximum_3d, write, STL), the
+   launches (10 gathered and 5 phased per tile batch), whether the native
+   host library built, the mask's voxel count (`engine_deployment`); the
+   skeleton and STL run on the phantom's airway lumen, since random
+   weights give a nearly solid mask.
+   The two epilogue kernels at the 15 call shapes at batch 1: the design
+   picked by shape, checked as in phase 3 (`engine_batch1_kernels`).
+   `network_prediction` in float32 on a 64^3 crop, cube 32, step 16, on
+   the card and on the CPU: trits and masks equal except where the CPU's
+   averaged score lies within 1e-5 of a threshold (`engine_card_vs_cpu`).
+   `run_test`, then `validate(stage=2)`, on two 160^3 cases cut from the
+   phantom with priors the phase writes (the port's skeleton of the
+   lumen, the tree's 7 segments as the branch map): train mode, a seeded
+   CUDA generator, dispatch-ahead depth 1; per case the host seconds of
+   its dispatch, its device seconds (CUDA events around the dispatch) and
+   host seconds (results ready to metric block), each call's wall
+   seconds and whether it is below the device and host sum, whether the
+   next case's device work was still running when a case's host work
+   began, the launches, every metric finite (`engine_test_validate`);
+10. conv_stats kernels: `phased_conv_stats` (the wgmma kernel, `design`
    "wgmma" on its lines) at the 5 phased and `dil2_conv_stats` (the
    halo-brick wgmma kernel, `design` "halo-brick wgmma", with its tile:
    brick 8 x ty x tz voxels, column tile, shared memory) at the 3 dil-2 call
@@ -67,33 +91,33 @@ Needs one CUDA card and nvcc; exits non-zero without them. Phases:
    989 TFLOP/s against bytes at 3.35 TB/s) and, as `library_ms`, cuDNN's
    bf16 conv alone (the 2^3 phased kernel, or the port's grouped dil-2
    conv), without gather and sums;
-10. conv_stats parity: `apply_fast(SEUNetConfig(conv_stats=True))` in
+11. conv_stats parity: `apply_fast(SEUNetConfig(conv_stats=True))` in
    float32 on the card against the CPU and against the default
    configuration (64^3, batch 2, rtol 1e-3, atol 1e-4); in bf16 against
    the default configuration on one 128^3 batch of 8 (relative L2 of each
    head at most 5e-2);
-11. conv_stats path: the runner of phase 6 under `conv_stats`, one
+12. conv_stats path: the runner of phase 6 under `conv_stats`, one
    warm-up volume and CS_VOLUMES timed volumes; the launches must read 5
    `phased_conv_stats`, 3 `dil2_conv_stats`, 7 gathered and 0 phased
    epilogues per tile batch;
-12. conv_epi kernels: `dil2_dense_conv_stats` at the 3 dil-2 and
+13. conv_epi kernels: `dil2_dense_conv_stats` at the 3 dil-2 and
    `phased_conv_ungathered` at the 5 phased call shapes of the
    conv-to-epilogue configuration (batch 8, bf16; both the wgmma kernel,
    `design` "wgmma"; the dense form on the block-diagonal lift the model
    passes, with its column tile BN and the share of k-step tiles it
-   executes) against their plain versions, with the checks of phase 9;
+   executes) against their plain versions, with the checks of phase 10;
    the dense form's bound counts the weight's nonzeros (`bound_dense_ms`:
    every element); `library_ms` is cuDNN's bf16 conv of the same function
    (the dense block-diagonal conv; the default path's per-input phased
    conv); the dense lines also time K9 on the same block. One more dense
    line, at ec5's shape on a dense random weight, holds the any-weight
    path (not in the kernel's summary: the model does not run it);
-13. conv_epi parity: as phase 10, under `SEUNetConfig(conv_epi=True)`;
-14. conv_epi path: the runner of phase 6 under `conv_epi`, one warm-up
+14. conv_epi parity: as phase 11, under `SEUNetConfig(conv_epi=True)`;
+15. conv_epi path: the runner of phase 6 under `conv_epi`, one warm-up
    volume and CE_VOLUMES timed volumes; the launches must read 3
    `dil2_dense_conv_stats`, 5 `phased_conv_ungathered`, 10 gathered and
    5 phased epilogues per tile batch, and no K8/K9;
-15. instance_norm_leaky: its forward and backward kernels against their
+16. instance_norm_leaky: its forward and backward kernels against their
    plain versions at (1, 64^3, 256) and at the s2d shape of ec3's output,
    (8, 64^3 * 8, 32), bf16, within one bf16 ulp; with ms, the plain
    version's ms, the memory bound, `copy_ms`, `design` and, as
@@ -101,7 +125,7 @@ Needs one CUDA card and nvcc; exits non-zero without them. Phases:
    backward, autograd through them). It has no model path: its launches
    are read from one forward and backward of its s2d entry point under
    autograd;
-16. a `kernels` JSON line (each kernel's summed ms, bound, plain and
+17. a `kernels` JSON line (each kernel's summed ms, bound, plain and
    library ms, launches, and for K1/K2/K5 and K7 `design` and `copy_ms`),
    then the card line, then the last line `{"ok": true, "device": {...}}`.
 
@@ -110,20 +134,31 @@ Any failure raises and exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from collections import defaultdict
+from unittest import mock
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from se_unet_airseg_tpu_torch.infer import SlidingWindowRunner
+from se_unet_airseg_tpu_torch import post
+from se_unet_airseg_tpu_torch.data import tile_positions
+from se_unet_airseg_tpu_torch.infer import SlidingWindowRunner, engine
+from se_unet_airseg_tpu_torch.infer import sliding_window as psw
+from se_unet_airseg_tpu_torch.io import read_nifti, write_nifti
+from se_unet_airseg_tpu_torch.pipeline.preprocess import load_canonical
+from se_unet_airseg_tpu_torch.post import mesh as post_mesh
 from se_unet_airseg_tpu_torch.models import (
     SEUNet,
     SEUNetConfig,
@@ -188,8 +223,8 @@ KERNELS = {  # name: (the Pallas functions it replaces, source)
     "phased_normalize": ("se_unet_airseg_tpu/ops/pallas_s2d.py:581", EPI_SRC),
     "max_pool_s2d_bwd": ("se_unet_airseg_tpu/ops/pallas_s2d.py:671",
                          "se_unet_airseg_tpu_torch/csrc/pool_s2d.cu"),
-    "phased_conv_stats": ("se_unet_airseg_tpu/ops/pallas_s2d.py:1081", WGMMA_SRC),
-    "dil2_conv_stats": ("se_unet_airseg_tpu/ops/pallas_s2d.py:404", DIL2_SRC),
+    "phased_conv_stats": ("se_unet_airseg_tpu/ops/pallas_s2d.py:1082", WGMMA_SRC),
+    "dil2_conv_stats": ("se_unet_airseg_tpu/ops/pallas_s2d.py:405", DIL2_SRC),
     "dil2_dense_conv_stats": ("se_unet_airseg_tpu/ops/pallas_s2d.py:1714", WGMMA_SRC),
     "phased_conv_ungathered": ("se_unet_airseg_tpu/ops/pallas_s2d.py:2179; "
                                "se_unet_airseg_tpu/ops/pallas_s2d.py:2131", WGMMA_SRC),
@@ -197,6 +232,11 @@ KERNELS = {  # name: (the Pallas functions it replaces, source)
     "instance_norm_leaky_bwd": ("se_unet_airseg_tpu/ops/pallas_norm.py:168", NL_SRC),
 }
 EPILOGUE_TABLES = {"gathered_epilogue": GATHERED, "phased_epilogue": PHASED}
+# engine path: the 160^3 test / validation cases cut from the phantom
+# (origins), and the 64^3 crop held card against CPU
+ENGINE_CUT = 160
+ENGINE_CASES = {"CASE_a": (48, 48, 80), "CASE_b": (160, 48, 40)}
+CMP_CROP = (slice(96, 160), slice(96, 160), slice(128, 192))
 
 
 def ptxas_report(log: str) -> dict:
@@ -303,12 +343,13 @@ def bf16_ulp(ref: torch.Tensor) -> torch.Tensor:
     return torch.where(r == 0, torch.full_like(r, 2.0 ** -133), ulp)
 
 
-def kernel_inputs(kind: str, n: int, c8: int, gates: int, gen: torch.Generator):
+def kernel_inputs(kind: str, n: int, c8: int, gates: int, gen: torch.Generator,
+                  batch: int = BATCH):
     dev = torch.device("cuda")
     m = n + 1 if kind == "phased_epilogue" else n
-    y = torch.randn((BATCH, m, m, m, c8), generator=gen, device=dev).to(torch.bfloat16)
-    scale8 = 0.5 + torch.rand((BATCH, c8), generator=gen, device=dev)
-    shift8 = 0.3 * torch.randn((BATCH, c8), generator=gen, device=dev)
+    y = torch.randn((batch, m, m, m, c8), generator=gen, device=dev).to(torch.bfloat16)
+    scale8 = 0.5 + torch.rand((batch, c8), generator=gen, device=dev)
+    shift8 = 0.3 * torch.randn((batch, c8), generator=gen, device=dev)
     wse = None
     if gates:
         wse = (0.1 * torch.randn((gates, c8 // 8), generator=gen, device=dev)).to(torch.bfloat16)
@@ -500,8 +541,10 @@ def model_parity_phase():
 
 def phantom(seed: int):
     """Synthetic chest CT, int16 HU+1024: body of soft tissue, two lungs,
-    a tubular airway tree (lumen -1000 HU, wall +50 HU), noise. Returns
-    (volume as numpy, airway lumen mask as a bool tensor on the card)."""
+    a tubular airway tree of 7 segments (lumen -1000 HU, wall +50 HU),
+    noise. Returns (volume as numpy, airway lumen mask as a bool tensor on
+    the card, the lumen's segment labels 1..7 as int16 numpy: a branch map
+    by construction, kept off the card)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, h, w = SHAPE
@@ -509,6 +552,7 @@ def phantom(seed: int):
                                for s in SHAPE), indexing="ij")
     hu = torch.full(SHAPE, -1000.0, device=dev)
     lumen = torch.zeros(SHAPE, dtype=torch.bool, device=dev)
+    branch = torch.zeros(SHAPE, dtype=torch.int16, device=dev)
     body = ((y - h / 2) / (0.45 * h)) ** 2 + ((x - w / 2) / (0.47 * w)) ** 2 < 1
     hu[body] = 40.0
     for cx in (0.3 * w, 0.7 * w):
@@ -521,7 +565,7 @@ def phantom(seed: int):
            "r1": (0.85 * d, 0.35 * h, 0.75 * w), "r2": (0.8 * d, 0.65 * h, 0.8 * w)}
     segs = [("t0", "t1", 9.0), ("t1", "l", 6.0), ("t1", "r", 6.0), ("l", "l1", 3.5),
             ("l", "l2", 3.5), ("r", "r1", 3.5), ("r", "r2", 3.5)]
-    for a, b, r in segs:
+    for label, (a, b, r) in enumerate(segs, start=1):
         p0 = torch.tensor(pts[a], device=dev)
         v = torch.tensor(pts[b], device=dev) - p0
         t = ((z - p0[0]) * v[0] + (y - p0[1]) * v[1] + (x - p0[2]) * v[2]) / (v @ v)
@@ -531,8 +575,10 @@ def phantom(seed: int):
         hu[(dist >= r) & (dist < r + 2)] = 50.0
         hu[dist < r] = -1000.0
         lumen |= dist < r
+        branch[dist < r] = label
     hu = hu + 30.0 * torch.randn(SHAPE, generator=gen, device=dev)
-    return (hu + 1024.0).clamp(0, 4000).to(torch.int16).cpu().numpy(), lumen
+    return (hu + 1024.0).clamp(0, 4000).to(torch.int16).cpu().numpy(), lumen, \
+        branch.cpu().numpy()
 
 
 def main_path_phase(vol: np.ndarray):
@@ -1078,6 +1124,303 @@ def train_path_phase(vol: np.ndarray, lumen: torch.Tensor):
     return launches
 
 
+class StepClock:
+    """Seconds by step of an entry point: `patch` wraps module attributes
+    (the functions the entry point calls) in host timers; a step marked
+    `sync` waits for the card before its clock stops."""
+
+    def __init__(self):
+        self.s = defaultdict(float)
+        self.stack = contextlib.ExitStack()
+
+    def patch(self, owner, name: str, step: str, sync: bool = False) -> None:
+        fn = getattr(owner, name)
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            self.s[step] += time.perf_counter() - t0
+            return out
+
+        self.stack.enter_context(mock.patch.object(owner, name, timed))
+
+
+def tile_batches(shape, cube: int, step: int) -> int:
+    """Tile batches of the engine's runner (batch 1) over a volume."""
+    return len(tile_positions(tuple(int(d) for d in np.maximum(shape, cube)), cube, step))
+
+
+def on_mask(fn, mask: np.ndarray, at: int):
+    """`fn` with its positional argument `at` replaced by `mask`, which
+    must have the shape of the argument it replaces."""
+    def call(*args, **kw):
+        if args[at].shape != mask.shape:
+            raise AssertionError(f"mask {args[at].shape}, substitute {mask.shape}")
+        return fn(*args[:at], mask, *args[at + 1:], **kw)
+    return call
+
+
+def deployment_phase(vol: np.ndarray, lumen: torch.Tensor, params, cfg, tmp: str) -> None:
+    """`network_prediction` on the phantom as a raw-HU NIfTI, eval mode,
+    cli.predict's defaults (cube 128, step 64, the runner's batch 1):
+    seconds by step, the K1/K2 launches (10 and 5 per tile batch), the
+    route of the host library, the mask's voxel count. Random weights
+    give a nearly solid mask, which no airway looks like: the skeleton
+    and STL step is handed the phantom's airway lumen in the mask's frame
+    instead, so its seconds are those of an airway-sized mask."""
+    ct = os.path.join(tmp, "ct", "CASE_phantomdata.nii.gz")
+    os.makedirs(os.path.dirname(ct))
+    write_nifti(ct, (vol.astype(np.int32) - 1024).astype(np.int16))
+    # the lumen through the same axis canonicalization as the CT
+    lumen_nii = os.path.join(tmp, "ct", "lumen.nii.gz")
+    write_nifti(lumen_nii, lumen.cpu().numpy().astype(np.uint8))
+    airway = load_canonical(lumen_nii)[0]
+    t0 = time.perf_counter()
+    native = post.native_available()  # builds the host library at first use
+    native_s = time.perf_counter() - t0
+    clock = StepClock()
+    for owner, name, at in ((post, "skeletonize_3d", 0), (post_mesh, "export_mask_stl", 1)):
+        clock.stack.enter_context(mock.patch.object(
+            owner, name, on_mask(getattr(owner, name), airway, at)))
+    for owner, name, step, sync in (
+            (engine, "preprocess_ct_volume", "preprocess", False),
+            (SlidingWindowRunner, "predict_trits_summary_device", "device", True),
+            (psw, "fetch_trits", "decode", False),
+            (engine, "dti_fn", "dti", False),
+            (engine, "border_suppress", "border_maximum_3d", False),
+            (engine, "maximum_3d", "border_maximum_3d", False),
+            (engine, "write_nifti", "write", False),
+            (post, "skeletonize_3d", "stl", False),
+            (post_mesh, "export_mask_stl", "stl", False)):
+        clock.patch(owner, name, step, sync)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with clock.stack:
+        t0 = time.perf_counter()
+        out = engine.network_prediction(params, cfg, ct, os.path.join(tmp, "pred"))
+        total_s = time.perf_counter() - t0
+    launches = dict(launch_counts)
+    img = read_nifti(os.path.join(tmp, "pred", "CASE_phantomdata_cut.nii.gz"))
+    n = tile_batches(img.array.shape, 128, 64)
+    if launches != counts(gathered_epilogue=10 * n, phased_epilogue=5 * n):
+        raise AssertionError(f"deployment launches {launches}, want 10 and 5 per tile batch "
+                             f"over {n}")
+    mask = read_nifti(out).array
+    if mask.shape != img.array.shape or mask.dtype != np.uint8 or mask.max() > 1:
+        raise AssertionError(f"bad mask {mask.shape} {mask.dtype}")
+    stl = os.path.join(tmp, "pred", "CASE_phantom_seg.stl")
+    if native and mask.any() and not (os.path.exists(stl) and os.path.getsize(stl) > 84):
+        raise AssertionError("no STL written with the native library present")
+    line = {"shape": list(img.array.shape), "cube": 128, "step": 64, "batch": 1,
+            "dtype": "bfloat16", "tile_batches": n, "seconds": dict(clock.s),
+            "total_s": total_s, "launches": launches, "native_post": native,
+            "native_build_s": native_s, "mask_voxels": int(mask.sum()),
+            "stl_mask": "the phantom's airway lumen", "stl_mask_voxels": int(airway.sum()),
+            "stl_bytes": os.path.getsize(stl) if os.path.exists(stl) else None}
+    if not native:
+        line["stl"] = "skipped: the native post-processing library did not build"
+    emit({"engine_deployment": line})
+
+
+def batch1_kernel_phase() -> None:
+    """K1/K2 at the 15 epilogue call shapes of the engine's batch 1: the
+    design `pick_design` takes, and the kernel against its plain version
+    with phase 3's check (one bf16 ulp where no gate rounds; the gated
+    products within four)."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    lines = []
+    for kind, table in EPILOGUE_TABLES.items():
+        kernel, plain = getattr(eps, kind), getattr(eps, kind + "_plain")
+        for block, n, c8, gates in table:
+            y, scale8, shift8, wse = kernel_inputs(kind, n, c8, gates, gen, batch=1)
+            got = kernel(y, scale8, shift8, wse)
+            ref = plain(y, scale8, shift8, wse)
+            err, ok = bf16_mismatch(got, ref)
+            d = (got.float() - ref.float()).abs()
+            one_ulp = bool((d <= bf16_ulp(ref)).all())
+            if not ok or (not gates and not one_ulp) or not torch.isfinite(got.float()).all():
+                raise AssertionError(f"{kind} {block} at batch 1: kernel disagrees with its "
+                                     f"plain version (max |d| {err})")
+            lines.append({"kernel": kind, "block": block, "shape": list(y.shape),
+                          "gates": gates, "design": eps.pick_design(y, kind == "phased_epilogue"),
+                          "max_abs_diff": err, "within_one_ulp": one_ulp,
+                          "share_beyond_one_ulp": float((d > bf16_ulp(ref)).float().mean()),
+                          "ms": cuda_ms(lambda: kernel(y, scale8, shift8, wse))})
+            del y, got, ref, d
+    emit({"engine_batch1_kernels": lines})
+
+
+def card_cpu_phase(vol: np.ndarray, params, tmp: str) -> None:
+    """`network_prediction` in float32 on a 64^3 crop of the phantom,
+    cube 32, step 16, on the card and on the CPU: trit fields and masks
+    equal except where the CPU's averaged score lies within 1e-5 of a
+    threshold."""
+    ct = os.path.join(tmp, "ct64", "CASE_cropdata.nii.gz")
+    os.makedirs(os.path.dirname(ct))
+    write_nifti(ct, (vol[CMP_CROP].astype(np.int32) - 1024).astype(np.int16))
+    cfg = SEUNetConfig()
+    fetch = psw.fetch_trits
+    res = {}
+    for dev in ("cuda", "cpu"):
+        seen = []
+
+        def keep(out):
+            seen.append(fetch(out))
+            return seen[-1]
+
+        with mock.patch.object(psw, "fetch_trits", keep):
+            path = engine.network_prediction(params, cfg, ct, os.path.join(tmp, "cmp_" + dev),
+                                             cube=32, step=16, device=dev)
+        res[dev] = (seen[0], read_nifti(path).array)
+    img = read_nifti(os.path.join(tmp, "cmp_cpu", "CASE_cropdata_cut.nii.gz"))
+    with torch.inference_mode():
+        avg = SlidingWindowRunner(params, cfg, cube=32, step=16, device="cpu").predict_hu(
+            img.array, hu_shift=-1024.0)
+    near = (np.abs(avg - 0.5) < 1e-5) | (np.abs(avg - 0.4) < 1e-5)
+    (t_card, m_card), (t_cpu, m_cpu) = res["cuda"], res["cpu"]
+    line = {"shape": list(img.array.shape), "cube": 32, "step": 16, "dtype": "float32",
+            "near_threshold_voxels": int(near.sum()),
+            "trits_differing": int((t_card != t_cpu).sum()),
+            "mask_voxels_differing": int((m_card != m_cpu).sum()),
+            "mask_voxels": int(m_cpu.sum())}
+    emit({"engine_card_vs_cpu": line})
+    if (t_card != t_cpu)[~near].any() or (m_card != m_cpu)[~near].any():
+        raise AssertionError("card and CPU network_prediction differ away from a threshold")
+
+
+def write_cases(vol: np.ndarray, lumen: torch.Tensor, branch: np.ndarray, root: str):
+    """The ENGINE_CASES crops as an AFTER_DATA tree with their priors: the
+    port's skeleton of the lumen, the segment map as the branch parse,
+    the upper half of the lumen as the stage-1 prediction."""
+    lum = lumen.cpu().numpy()
+    data_root, file_root = os.path.join(root, "AFTER_DATA"), os.path.join(root, "data")
+    for name, org in ENGINE_CASES.items():
+        sl = tuple(slice(o, o + ENGINE_CUT) for o in org)
+        mask = lum[sl].astype(np.uint8)
+        skel = post.skeletonize_3d(mask)
+        files = {("AFTER_DATA", "data", name + "data_cut.nii.gz"): vol[sl],
+                 ("AFTER_DATA", "mask", name + "mask_cut.nii.gz"): mask,
+                 ("data", "pred_1", name + ".nii.gz"): mask * (np.arange(ENGINE_CUT) <
+                                                               ENGINE_CUT // 2)[:, None, None]}
+        for suffix in ("_test", "_val"):
+            files[("data", "tree_parse" + suffix, name + "mask_cut.nii.gz")] = branch[sl]
+            files[("data", "skeleton" + suffix, name + "mask_cut.nii.gz")] = skel
+        for parts, arr in files.items():
+            path = os.path.join(root, *parts)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            write_nifti(path, arr)
+    return data_root, file_root
+
+
+def dispatch_clock(records: list):
+    """Patches of the engine that time each case with dispatch-ahead left
+    as it is: the host seconds of its dispatch (upload and queueing), its
+    device seconds between CUDA events recorded around that dispatch
+    (upload through the codec), its host seconds from its results being
+    ready to its metric block, and whether the next case's device work
+    was still running when that host work began."""
+    stack = contextlib.ExitStack()
+    dispatch, finish, evaluate = (engine._dispatch_binarize, engine._finish_binarize,
+                                  engine.evaluation_case)
+    by_handle, current = {}, {}
+
+    def timed_dispatch(*args, **kw):
+        t0 = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        handle = dispatch(*args, **kw)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        rec = {"start": start, "end": end, "dispatch_s": time.perf_counter() - t0}
+        records.append(rec)
+        by_handle[id(handle)] = rec
+        return handle
+
+    def timed_finish(handle):
+        rec = by_handle.pop(id(handle))
+        rec["end"].synchronize()
+        rec["t0"] = time.perf_counter()
+        later = records[records.index(rec) + 1:]
+        rec["next_busy"] = bool(later) and not later[0]["end"].query()
+        current["rec"] = rec
+        return finish(handle)
+
+    def timed_evaluate(*args, **kw):
+        out = evaluate(*args, **kw)
+        rec = current.pop("rec")
+        rec["host_s"] = time.perf_counter() - rec["t0"]
+        return out
+
+    for name, fn in (("_dispatch_binarize", timed_dispatch), ("_finish_binarize", timed_finish),
+                     ("evaluation_case", timed_evaluate)):
+        stack.enter_context(mock.patch.object(engine, name, fn))
+    return stack
+
+
+def case_times(records: list, wall_s: float) -> dict:
+    device = [r["start"].elapsed_time(r["end"]) / 1e3 for r in records]
+    host = [r["host_s"] for r in records]
+    return {"wall_s": wall_s, "dispatch_s": [r["dispatch_s"] for r in records],
+            "device_s": device, "host_s": host,
+            "wall_below_device_plus_host": wall_s < sum(device) + sum(host),
+            "next_case_busy_at_host_post": [r["next_busy"] for r in records[:-1]]}
+
+
+def entry_points_phase(vol, lumen, branch, params, cfg, tmp: str) -> None:
+    """`run_test`, then one `validate(stage=2)`, on the two 160^3 cases:
+    train mode, a seeded CUDA generator, cube 128, step 64, batch 1,
+    dispatch-ahead depth 1. Per case dispatch, device and host seconds,
+    each call's wall seconds, the launches (10 and 5 per tile batch) and
+    every metric finite."""
+    root = os.path.join(tmp, "cases")
+    data_root, file_root = write_cases(vol, lumen, branch, root)
+    names = list(ENGINE_CASES)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    line = {"cases": names, "cut": ENGINE_CUT}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for entry in ("run_test", "validate"):
+        records = []
+        with dispatch_clock(records):
+            t0 = time.perf_counter()
+            if entry == "run_test":
+                out = engine.run_test(params, cfg, names, data_root, file_root,
+                                      os.path.join(root, "testlog.txt"),
+                                      os.path.join(root, "test_result"), generator=gen)
+                values = [v for m in out for v in m.values()]
+            else:
+                out = engine.validate(params, cfg, names, data_root, file_root, 0,
+                                      os.path.join(root, "log.txt"), stage=2, generator=gen)
+                values = list(out)
+            wall_s = time.perf_counter() - t0
+        line[entry] = {**case_times(records, wall_s), "result": out}
+        if not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"{entry}: non-finite metric {out}")
+    launches = dict(launch_counts)
+    n = 2 * len(names) * tile_batches((ENGINE_CUT,) * 3, 128, 64)
+    if launches != counts(gathered_epilogue=10 * n, phased_epilogue=5 * n):
+        raise AssertionError(f"run_test + validate launches {launches}, want 10 and 5 per "
+                             f"tile batch over {n}")
+    line["launches"] = launches
+    emit({"engine_test_validate": line})
+
+
+def engine_path_phase(vol: np.ndarray, lumen: torch.Tensor, branch: np.ndarray) -> None:
+    """The inference entry points at full width, bf16, the seed of phase
+    6, in a temporary working directory (run_test's boxplot lands
+    there)."""
+    cfg, model = get_model(seed=0, compute_dtype=torch.bfloat16)
+    params = model.params_tree()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        deployment_phase(vol, lumen, params, cfg, tmp)
+        batch1_kernel_phase()
+        card_cpu_phase(vol, params, tmp)
+        entry_points_phase(vol, lumen, branch, params, cfg, tmp)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1126,7 +1469,7 @@ def main() -> int:
     model_parity_phase()
     config_parity_phase("conv_stats", SEUNetConfig(conv_stats=True), CS_LAUNCHES)
     config_parity_phase("conv_epi", SEUNetConfig(conv_epi=True), CE_LAUNCHES)
-    vol, lumen = phantom(0)
+    vol, lumen, branch = phantom(0)
     main_launches, trits = main_path_phase(vol)
     cs_launches = config_path_phase("conv_stats", vol, trits, CS_VOLUMES, CS_LAUNCHES,
                                     conv_stats=True)
@@ -1134,6 +1477,7 @@ def main() -> int:
                                     conv_epi=True)
     train_parity_phase()
     train_launches = train_path_phase(vol, lumen)
+    engine_path_phase(vol, lumen, branch)
     # each kernel's launches from the path that runs it
     launches = {**{k: main_launches[k] for k in EPILOGUE_TABLES},
                 **{k: train_launches[k] for k in ("phased_normalize", "max_pool_s2d_bwd")},

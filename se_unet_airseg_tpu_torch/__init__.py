@@ -1,9 +1,13 @@
-"""se_unet_airseg_tpu_torch — the SE-UNet airway-segmentation inference
-path in PyTorch, for one NVIDIA Hopper GPU (H100, sm_90a).
+"""se_unet_airseg_tpu_torch — SE-UNet airway segmentation in PyTorch,
+for one NVIDIA Hopper GPU (H100, sm_90a).
 
-A port of the eval-mode whole-volume inference path of the JAX package
-`se_unet_airseg_tpu`, which stays the reference. Module names mirror
-that package so each function's counterpart is easy to find. Public
+A port of the JAX package `se_unet_airseg_tpu`, which stays the
+reference: the model and its fast path, the whole-volume runner (eval
+and train mode), the train step, the inference drivers (`validate`,
+`run_test`, `network_prediction`), the predict and test CLIs, and their
+host code (NIfTI I/O, preprocessing, post-processing, metrics, LOG
+book, checkpoints). Module names mirror that package so each function's
+counterpart is easy to find. Public
 functions keep its channels-last NDHWC layout; convolution weights in
 the parameter tree are DHWIO, the module's own parameters OIDHW (the
 reference `.pth` layout).
