@@ -55,6 +55,12 @@ Needs one CUDA card and nvcc; exits non-zero without them. Phases:
    lumen label): one warm-up step, then TRAIN_STEPS timed steps; the
    launches must read 10/5/5/2 per step, every loss must be finite and
    the batch's loss under one fixed set of DropLayer draws must fall;
+8b. remat step: one step of phase 8's configuration with
+   `SEUNetConfig(remat=True)` against the same step with remat off (the
+   same weights, batch and DropLayer draws, each from a fresh AdamW
+   state): the loss within bf16 rounding, each gradient leaf within 2e-2
+   of its norm, launches 20/5/5/2 against 10/5/5/2 (remat recomputes the
+   gathered blocks in the backward), the peak memory of each;
 9. engine path: the inference entry points (`infer/engine.py`) at full
    width, bf16, the weights of phase 6, in a temporary directory.
    `network_prediction` on the phantom written as a raw-HU NIfTI, with
@@ -79,6 +85,21 @@ Needs one CUDA card and nvcc; exits non-zero without them. Phases:
    seconds and whether it is below the device and host sum, whether the
    next case's device work was still running when a case's host work
    began, the launches, every metric finite (`engine_test_validate`);
+9b. drivers path: `phased_normalize` and the pool backward at the batch-1
+   shapes of the online hard-mining replay, checked and timed as in phase
+   4 (`drivers_batch1_kernels`); then the curriculum drivers
+   (`train/stages.py`) at full width, bf16, cube 128, batch 8, from the
+   weights of phase 6, on the two 160^3 cases with every training prior
+   (the port's LIB weights and skeletons, stage-3 break priors cut into
+   the lumen by hand): `train_stage1` for 2 epochs, `train_stage2` and
+   `train_stage3` for 1 each (online cache, batch-1 replay, validation),
+   then `train_stage1` for 3 epochs on stage 1's directory, which must
+   resume at epoch 2 from the saved step and AdamW moments. Per stage the
+   main and replay steps, seconds by part (Prefetcher wait, B=8 steps,
+   cache writes, replay, validation, checkpoints), the median B=8 step
+   against phase 8's, peak memory; every loss finite, every step's
+   launches 10/5/5/2 (the B=1 replay steps too), every validation's 10/5
+   per tile batch, the files each run writes (`drivers_path`);
 10. conv_stats kernels: `phased_conv_stats` (the wgmma kernel, `design`
    "wgmma" on its lines) at the 5 phased and `dil2_conv_stats` (the
    halo-brick wgmma kernel, `design` "halo-brick wgmma", with its tile:
@@ -172,12 +193,15 @@ from se_unet_airseg_tpu_torch.ops import conv_stats as pcs
 from se_unet_airseg_tpu_torch.ops import epilogue_s2d as eps
 from se_unet_airseg_tpu_torch.ops import norm_leaky, reset_launch_counts
 from se_unet_airseg_tpu_torch.ops import s2d as ps2d
+from se_unet_airseg_tpu_torch.ops.lib_filter import lib_weight_map
 from se_unet_airseg_tpu_torch.train import (
     create_train_state,
     make_loss_fn,
     make_optimizer,
     make_train_step,
 )
+from se_unet_airseg_tpu_torch.train import stages
+from se_unet_airseg_tpu_torch.train.checkpoint import _paths
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
@@ -237,6 +261,7 @@ EPILOGUE_TABLES = {"gathered_epilogue": GATHERED, "phased_epilogue": PHASED}
 ENGINE_CUT = 160
 ENGINE_CASES = {"CASE_a": (48, 48, 80), "CASE_b": (160, 48, 40)}
 CMP_CROP = (slice(96, 160), slice(96, 160), slice(128, 192))
+DRIVER_CUBE = 128  # the drivers' crop and validation tile
 
 
 def ptxas_report(log: str) -> dict:
@@ -278,6 +303,8 @@ def counts(**nonzero) -> dict:
 STEP_LAUNCHES = counts(gathered_epilogue=10, phased_epilogue=5, phased_normalize=5,
                        max_pool_s2d_bwd=2)
 CS_LAUNCHES = counts(gathered_epilogue=7, phased_conv_stats=5, dil2_conv_stats=3)
+REMAT_LAUNCHES = counts(gathered_epilogue=20, phased_epilogue=5, phased_normalize=5,
+                        max_pool_s2d_bwd=2)
 CE_LAUNCHES = counts(gathered_epilogue=10, phased_epilogue=5, dil2_dense_conv_stats=3,
                      phased_conv_ungathered=5)
 
@@ -363,7 +390,7 @@ def least_ms(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bound(elt: int, out_numel: int, c8: int, gates: int):
+def bound(elt: int, out_numel: int, c8: int, gates: int, batch: int = BATCH):
     """Least time for one epilogue call: the elements the output needs
     read once (one per output element: the phased form reads only its 8
     shifted n^3 windows of the (n+1)^3 conv output), scale8/shift8 and
@@ -371,7 +398,7 @@ def bound(elt: int, out_numel: int, c8: int, gates: int):
     about (4 + 4G) f32 operations per output element (affine, LeakyReLU,
     per gate a multiply-add and a multiply, the sigmoid once per C
     lanes)."""
-    nbytes = (2 * out_numel + gates * c8 // 8) * elt + 2 * BATCH * c8 * 4
+    nbytes = (2 * out_numel + gates * c8 // 8) * elt + 2 * batch * c8 * 4
     return least_ms(nbytes, out_numel * (4 + 4 * gates))
 
 
@@ -432,33 +459,35 @@ def kernel_phase():
     return summary
 
 
-def pool_input(n: int, c8: int, gen: torch.Generator) -> torch.Tensor:
+def pool_input(n: int, c8: int, gen: torch.Generator, batch: int = BATCH) -> torch.Tensor:
     """bf16 (B, n, n, n, 8C) pool input with ties among the 8
     sub-positions: on every third channel sub-positions 3 and 6 copy 1,
     on every seventh all 8 are equal."""
-    x8 = torch.randn((BATCH, n, n, n, 8, c8 // 8), generator=gen, device="cuda")
+    x8 = torch.randn((batch, n, n, n, 8, c8 // 8), generator=gen, device="cuda")
     x8[..., 3, ::3] = x8[..., 1, ::3]
     x8[..., 6, ::3] = x8[..., 1, ::3]
     x8[..., :, ::7] = x8[..., :1, ::7]
     return x8.flatten(-2).to(torch.bfloat16)
 
 
-def train_kernel_phase():
+def train_kernel_phase(batch: int = BATCH):
     """phased_normalize at the 5 phased shapes and the fused pool
-    backward at the 2 pool shapes of one train step, each against its
-    plain version (normalize within one bf16 ulp; pool exact, one ulp
-    where a tie divides); the pool also against autograd of amax."""
+    backward at the 2 pool shapes of one train step of `batch` crops
+    (8: the train path; 1: the drivers' online hard-mining replay), each
+    against its plain version (normalize within one bf16 ulp; pool exact,
+    one ulp where a tie divides); the pool also against autograd of
+    amax."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     summary = {"phased_normalize": new_summary(), "max_pool_s2d_bwd": new_summary()}
     for block, n, c8, _ in PHASED:
-        y, scale8, shift8, _ = kernel_inputs("phased_epilogue", n, c8, 0, gen)
+        y, scale8, shift8, _ = kernel_inputs("phased_epilogue", n, c8, 0, gen, batch=batch)
         got = eps.phased_normalize(y, scale8, shift8)
         ref = eps.phased_normalize_plain(y, scale8, shift8)
         d = (got.float() - ref.float()).abs()
         if not bool((d <= bf16_ulp(ref)).all()) or not torch.isfinite(got.float()).all():
             raise AssertionError(f"phased_normalize {block}: kernel disagrees with its "
                                  f"plain version (max |d| {float(d.max())})")
-        b_ms, b_by = bound(y.element_size(), got.numel(), c8, 0)
+        b_ms, b_by = bound(y.element_size(), got.numel(), c8, 0, batch)
         line = {"kernel": "phased_normalize", "block": block, "shape": list(y.shape),
                 "design": eps.pick_design(y, True, normalize=True),
                 "ms": cuda_ms(lambda: eps.phased_normalize(y, scale8, shift8)),
@@ -473,8 +502,8 @@ def train_kernel_phase():
         add_call(summary["phased_normalize"], line)
         del y, got, ref, d
     for block, n, c8 in POOLS:
-        x = pool_input(n, c8, gen)
-        g = torch.randn((BATCH, n, n, n, c8 // 8), generator=gen, device="cuda")
+        x = pool_input(n, c8, gen, batch)
+        g = torch.randn((batch, n, n, n, c8 // 8), generator=gen, device="cuda")
         g = g.to(torch.bfloat16)
         x8 = x.unflatten(-1, (8, c8 // 8))
         tie = ((x8 == x8.amax(-2, keepdim=True)).sum(-2, keepdim=True) > 1)
@@ -1121,7 +1150,57 @@ def train_path_phase(vol: np.ndarray, lumen: torch.Tensor):
         "losses": losses, "fixed_draw_loss_before": loss_before,
         "fixed_draw_loss_after": loss_after, "launches": launches,
         "label_share": float(batch["label"].mean())}})
-    return launches
+    return launches, med, batch, fixed
+
+
+def remat_phase(batch: dict, draws: list) -> None:
+    """One full-width bf16 stage-1 step with SEUNetConfig(remat=True) held
+    to the same step with remat off: the weights of train_path (seed 0),
+    its batch and fixed DropLayer draws, each from a fresh AdamW state.
+    The loss within bf16 rounding, each gradient leaf within 2e-2 of its
+    own norm, the launches (remat recomputes the 10 gathered blocks in
+    the backward: K1 20 per step), and the peak memory of each step."""
+    out = {}
+    for remat in (False, True):
+        cfg = SEUNetConfig(compute_dtype=torch.bfloat16, remat=remat)
+        tree = SEUNet(cfg, generator=torch.Generator().manual_seed(0)).cuda().params_tree()
+        opt, _ = make_optimizer()
+        state = create_train_state(tree, opt)
+        del tree
+        step = make_train_step(cfg, stage=1)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state, aux = step(state, batch, drop_draws=draws)
+        loss = float(aux["loss"])
+        secs = time.perf_counter() - t0
+        grads = [torch.zeros(t.shape) if t.grad is None else t.grad.float().cpu()
+                 for t in _leaves(state.params)]
+        out[remat] = {"loss": loss, "step_s_first": secs, "launches": dict(launch_counts),
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "grads": grads}
+        del state, step, aux
+    off, on = out[False], out[True]
+    floor = 1e-6 * max(float(r.norm()) for r in off["grads"])
+    ratios = [float((a - r).norm() / r.norm()) for a, r in zip(on["grads"], off["grads"])
+              if float(r.norm()) > floor]
+    emit({"remat_step": {
+        "crop": batch["label"].shape[1], "batch": batch["label"].shape[0], "dtype": "bfloat16",
+        "stage": 1,
+        **{f"{k}_{name}": v[k] for name, v in (("remat_off", off), ("remat_on", on))
+           for k in ("loss", "step_s_first", "peak_mem_gb", "launches")},
+        "loss_abs_diff": abs(on["loss"] - off["loss"]),
+        "grad_leaf_norm_ratio_max": max(ratios)}})
+    torch.cuda.empty_cache()
+    if off["launches"] != STEP_LAUNCHES or on["launches"] != REMAT_LAUNCHES:
+        raise AssertionError(f"remat step launches {on['launches']}, remat off "
+                             f"{off['launches']}")
+    if not (math.isfinite(on["loss"]) and abs(on["loss"] - off["loss"])
+            <= 2.0 ** -7 * abs(off["loss"]) + 1e-3):
+        raise AssertionError(f"remat step loss {on['loss']} against {off['loss']}")
+    if not max(ratios) <= 2e-2:
+        raise AssertionError(f"remat step gradients differ: leaf norm ratio {max(ratios)}")
 
 
 class StepClock:
@@ -1291,26 +1370,53 @@ def card_cpu_phase(vol: np.ndarray, params, tmp: str) -> None:
 
 
 def write_cases(vol: np.ndarray, lumen: torch.Tensor, branch: np.ndarray, root: str):
-    """The ENGINE_CASES crops as an AFTER_DATA tree with their priors: the
-    port's skeleton of the lumen, the segment map as the branch parse,
-    the upper half of the lumen as the stage-1 prediction."""
+    """The ENGINE_CASES crops as an AFTER_DATA tree with every prior the
+    entry points and the three training stages read: the port's skeleton
+    of the lumen (train, val, test), the segment map as the branch parse,
+    the upper half of the lumen as the stage-1 prediction, the port's LIB
+    weights (float16), and stage-3 break priors made by hand: the lumen
+    with a 4-slice axial gap at the middle of its extent as the stage-2
+    prediction, the skeleton's voxels in the gap as the break skeleton
+    ((3, N) coordinates), the lumen within 4 slices of the gap as the
+    break weight (float16); and base_dict.json: both cases train, the
+    first validates."""
     lum = lumen.cpu().numpy()
     data_root, file_root = os.path.join(root, "AFTER_DATA"), os.path.join(root, "data")
     for name, org in ENGINE_CASES.items():
         sl = tuple(slice(o, o + ENGINE_CUT) for o in org)
         mask = lum[sl].astype(np.uint8)
         skel = post.skeletonize_3d(mask)
+        mid = int(np.median(np.nonzero(mask.any(axis=(1, 2)))[0]))
+        gap, near = slice(mid - 2, mid + 2), slice(mid - 6, mid + 6)
+        broken, in_gap, br_w = mask.copy(), np.zeros_like(skel), np.zeros(mask.shape, np.float16)
+        broken[gap] = 0
+        in_gap[gap] = skel[gap]
+        br_w[near] = mask[near]
+        if not in_gap.any():
+            raise AssertionError(f"{name}: no skeleton voxel in the break gap")
         files = {("AFTER_DATA", "data", name + "data_cut.nii.gz"): vol[sl],
                  ("AFTER_DATA", "mask", name + "mask_cut.nii.gz"): mask,
                  ("data", "pred_1", name + ".nii.gz"): mask * (np.arange(ENGINE_CUT) <
-                                                               ENGINE_CUT // 2)[:, None, None]}
+                                                               ENGINE_CUT // 2)[:, None, None],
+                 ("data", "pred_2", name + ".nii.gz"): broken,
+                 ("data", "skeleton", name + "mask_cut.nii.gz"): skel}
         for suffix in ("_test", "_val"):
             files[("data", "tree_parse" + suffix, name + "mask_cut.nii.gz")] = branch[sl]
             files[("data", "skeleton" + suffix, name + "mask_cut.nii.gz")] = skel
-        for parts, arr in files.items():
+        arrays = {("data", "LIB_weight", name + ".npy"):
+                  lib_weight_map(mask).cpu().numpy().astype(np.float16),
+                  ("data", "br_skel", name + ".npy"): np.array(np.nonzero(in_gap)),
+                  ("data", "BR_weight", name + ".npy"): br_w}
+        for parts, arr in {**files, **arrays}.items():
             path = os.path.join(root, *parts)
             os.makedirs(os.path.dirname(path), exist_ok=True)
-            write_nifti(path, arr)
+            if path.endswith(".npy"):
+                np.save(path, arr)
+            else:
+                write_nifti(path, arr)
+    names = list(ENGINE_CASES)
+    with open(os.path.join(file_root, "base_dict.json"), "w") as f:
+        json.dump({"0": {"train": names, "val": names[:1]}}, f)
     return data_root, file_root
 
 
@@ -1421,6 +1527,212 @@ def engine_path_phase(vol: np.ndarray, lumen: torch.Tensor, branch: np.ndarray) 
     torch.cuda.empty_cache()
 
 
+class DriverProbe:
+    """Patches of train/stages.py for one driver run: host seconds by part
+    (the time blocked on the Prefetcher; the B=8 steps, each to a
+    synchronize, since the driver fetches the loss right after it; cache
+    writes; the replay pass, ended by a synchronize; validation, likewise;
+    checkpoint and resume point; the rest of the wall time as "other"),
+    each step's and each validation's launches,
+    every step's loss, and with `capture_first` the step count and AdamW
+    moments the first step starts from."""
+
+    def __init__(self, capture_first: bool = False):
+        self.clock = clock = StepClock()
+        self.main_s, self.losses, self.val_launches = [], [], []
+        self.steps = {"main": 0, "replay": 0}
+        self.capture_first, self.first = capture_first, None
+        for owner, name, part, sync in ((stages.OnlineCache, "add_batch", "cache_write", False),
+                                        (stages, "_replay_pass", "replay", True),
+                                        (stages, "save_params", "checkpoint", False),
+                                        (stages, "_save_resume_point", "checkpoint", False)):
+            clock.patch(owner, name, part, sync)
+        validate, make = stages._validate, stages.make_resilient_step
+
+        def timed_validate(*args, **kw):
+            before = dict(launch_counts)
+            t0 = time.perf_counter()
+            out = validate(*args, **kw)
+            torch.cuda.synchronize()
+            clock.s["validation"] += time.perf_counter() - t0
+            self.val_launches.append({k: launch_counts[k] - before[k] for k in launch_counts})
+            return out
+
+        class TimedPrefetcher(stages.Prefetcher):
+            def __iter__(inner):
+                it = super().__iter__()
+                while True:
+                    t0 = time.perf_counter()
+                    item = next(it, None)
+                    clock.s["prefetch_wait"] += time.perf_counter() - t0
+                    if item is None:
+                        return
+                    yield item
+
+        def make_timed(*args, **kw):
+            step = make(*args, **kw)
+
+            def timed(state, batch, **draws):
+                b = batch["image"].shape[0]
+                if self.capture_first and self.first is None:
+                    self.first = (state.step, {
+                        p: {k: v.to("cpu", copy=True) for k, v in state.optimizer.state[t].items()}
+                        for p, t in _paths(state.params) if t in state.optimizer.state})
+                before = dict(launch_counts)
+                t0 = time.perf_counter()
+                state, aux = step(state, batch, **draws)
+                if b > 1:
+                    torch.cuda.synchronize()
+                    self.main_s.append(time.perf_counter() - t0)
+                    clock.s["main_steps"] += self.main_s[-1]
+                diff = {k: launch_counts[k] - before[k] for k in launch_counts}
+                if diff != STEP_LAUNCHES:
+                    raise AssertionError(f"a batch-{b} driver step launched {diff}, want "
+                                         f"{STEP_LAUNCHES}")
+                self.steps["main" if b > 1 else "replay"] += 1
+                self.losses.append(aux["loss"])
+                return state, aux
+            return timed
+
+        for name, fn in (("_validate", timed_validate), ("Prefetcher", TimedPrefetcher),
+                         ("make_resilient_step", make_timed)):
+            clock.stack.enter_context(mock.patch.object(stages, name, fn))
+
+
+def check_stage_files(cfg, stage: int, epochs: range, main_steps: int) -> None:
+    """The files a driver run writes: a parameter file per epoch, the two
+    newest full states, the resume point, a LOG block per validation, the
+    TensorBoard records of every main step, and for stages 2/3 a
+    non-empty online cache."""
+    files = set(os.listdir(cfg.model_savepath))
+    want = {f"SE_UNet_{e}.pt" for e in range(epochs.stop)} | {"resume_meta.json"} | {
+        f"state_{e}.pt" for e in range(epochs.stop)[-2:]}
+    if files != want:
+        raise AssertionError(f"stage {stage} wrote {sorted(files)}, want {sorted(want)}")
+    blocks = re.findall(r"^epoch:(\d+)$", open(cfg.log_savepath).read(), re.M)
+    val_epochs = [epochs.stop - 1] if stage == 1 else list(epochs)
+    if [int(e) for e in blocks][-len(val_epochs):] != val_epochs:
+        raise AssertionError(f"stage {stage} LOG blocks {blocks}")
+    tb = os.path.join(os.path.dirname(cfg.log_savepath), "tb")
+    if not any(f.startswith("events.out.tfevents.") for f in os.listdir(tb)):
+        raise AssertionError(f"stage {stage}: no TensorBoard record")
+    with open(os.path.join(tb, "scalars.jsonl")) as f:
+        if sum(1 for _ in f) < main_steps:
+            raise AssertionError(f"stage {stage}: fewer TensorBoard scalars than steps")
+    if stage > 1 and not os.listdir(os.path.join(cfg.online_savepath, "image")):
+        raise AssertionError(f"stage {stage}: empty online cache")
+
+
+def drivers_path_phase(vol: np.ndarray, lumen: torch.Tensor, branch: np.ndarray,
+                       bare_step_s: float) -> None:
+    """The curriculum drivers (train/stages.py) at full width, bf16, cube
+    128, batch 8, on the two 160^3 cases with every prior (write_cases),
+    from the weights of phase 6: train_stage1 for 2 epochs, train_stage2
+    for 1 (from stage 1's parameters, pred_1, milestones (40, 60)),
+    train_stage3 for 1 (from stage 2's), then train_stage1 again for 3
+    epochs on stage 1's directory, which must resume at epoch 2 from the
+    saved step and AdamW moments. Per stage: main and replay steps,
+    seconds by part, the median B=8 step against train_path's, peak
+    memory. Every loss finite; every step launches K1/K2/K5/K6 10/5/5/2
+    (the replay's B=1 steps too), every validation 10/5 per tile batch;
+    the files each run writes."""
+    t_phase = time.perf_counter()
+    _, model = get_model(seed=0, compute_dtype=torch.bfloat16)
+    params = model.params_tree()
+    del model
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data_root, file_root = write_cases(vol, lumen, branch, tmp)
+        setup_s = time.perf_counter() - t0
+
+        def cfg(stage: int, epochs: int, start, **kw):
+            return stages.StageConfig(
+                data_root=data_root, file_root=file_root,
+                file_path=os.path.join(file_root, "base_dict.json"),
+                model_savepath=os.path.join(tmp, f"stage{stage}", "model"),
+                log_savepath=os.path.join(tmp, f"stage{stage}", "LOG.txt"),
+                epochs=epochs, batch_size=BATCH, cube=DRIVER_CUBE, start_params=start,
+                model_cfg=SEUNetConfig(compute_dtype=torch.bfloat16), **kw)
+
+        hm = {"milestones": (40, 60)}
+        runs = [("stage1", 1, range(0, 2), stages.train_stage1, lambda p: cfg(1, 2, p)),
+                ("stage2", 2, range(0, 1), stages.train_stage2, lambda p: cfg(
+                    2, 1, p, pred_path=os.path.join(file_root, "pred_1"),
+                    online_savepath=os.path.join(tmp, "online2"), **hm)),
+                ("stage3", 3, range(0, 1), stages.train_stage3, lambda p: cfg(
+                    3, 1, p, pred_path=os.path.join(file_root, "pred_2"),
+                    br_skel_path=os.path.join(file_root, "br_skel"),
+                    br_weight_path=os.path.join(file_root, "BR_weight"),
+                    online_savepath=os.path.join(tmp, "online3"), **hm)),
+                ("stage1_resume", 1, range(2, 3), stages.train_stage1, lambda p: cfg(1, 3, p))]
+        line = {"cube": DRIVER_CUBE, "batch": BATCH, "dtype": "bfloat16",
+                "cases": list(ENGINE_CASES),
+                "cut": ENGINE_CUT, "write_cases_s": setup_s, "train_path_step_s": bare_step_s}
+        n_val = tile_batches((ENGINE_CUT,) * 3, DRIVER_CUBE, DRIVER_CUBE // 2)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        for name, stage, epochs, train, make_cfg in runs:
+            c = make_cfg(params)
+            saved = None
+            if name == "stage1_resume":
+                saved = torch.load(os.path.join(c.model_savepath, "state_1.pt"),
+                                   map_location="cpu", weights_only=True)
+            probe = DriverProbe(capture_first=saved is not None)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            with probe.clock.stack:
+                t0 = time.perf_counter()
+                state = train(c)
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0
+            losses = [float(v) for v in probe.losses]
+            if not losses or not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"{name}: losses {losses}")
+            want_val = counts(gathered_epilogue=10 * n_val, phased_epilogue=5 * n_val)
+            if len(probe.val_launches) != (1 if stage == 1 else len(epochs)) or any(
+                    v != want_val for v in probe.val_launches):
+                raise AssertionError(f"{name}: validation launches {probe.val_launches}")
+            check_stage_files(c, stage, epochs, probe.steps["main"])
+            limit = int(len(ENGINE_CASES) * BATCH * 0.3)
+            want_steps = {"main": len(ENGINE_CASES) * len(epochs),
+                          "replay": 0 if stage == 1 else limit * len(epochs)}
+            if probe.steps != want_steps:
+                raise AssertionError(f"{name}: steps {probe.steps}, want {want_steps}")
+            rec = {"main_steps": probe.steps["main"], "replay_steps": probe.steps["replay"],
+                   "wall_s": wall_s, "seconds": dict(probe.clock.s),
+                   "main_step_s": probe.main_s,
+                   "main_step_s_median": statistics.median(probe.main_s),
+                   "median_over_train_path_step": statistics.median(probe.main_s) / bare_step_s,
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "losses": losses,
+                   "final_step": state.step}
+            rec["seconds"]["other"] = wall_s - sum(probe.clock.s.values())
+            if saved is not None:
+                step0, moments = probe.first
+                order = [tuple(p) for p in saved["order"]]
+                same = step0 == saved["step"] and len(moments) == len(saved["optimizer"]["state"])
+                for i, m in saved["optimizer"]["state"].items():
+                    got = moments[order[int(i)]]
+                    same &= got.keys() == m.keys() and all(torch.equal(got[k], m[k]) for k in m)
+                if not same or state.step != saved["step"] + len(ENGINE_CASES):
+                    raise AssertionError(f"resume: started at step {step0} (saved "
+                                         f"{saved['step']}), ended at {state.step}; moments "
+                                         f"equal: {same}")
+                rec["resumed_from_step"] = step0
+                rec["moments_equal_saved"] = same
+            line[name] = rec
+            params = state.params
+            del state, probe
+        launches = dict(launch_counts)
+        if any(launches[k] == 0 for k in ("gathered_epilogue", "phased_epilogue",
+                                          "phased_normalize", "max_pool_s2d_bwd")):
+            raise AssertionError(f"drivers path launches {launches}")
+        line["launches"] = launches
+    line["phase_wall_s"] = time.perf_counter() - t_phase
+    emit({"drivers_path": line})
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1476,8 +1788,12 @@ def main() -> int:
     ce_launches = config_path_phase("conv_epi", vol, trits, CE_VOLUMES, CE_LAUNCHES,
                                     conv_epi=True)
     train_parity_phase()
-    train_launches = train_path_phase(vol, lumen)
+    train_launches, bare_step_s, train_batch, train_draws = train_path_phase(vol, lumen)
+    remat_phase(train_batch, train_draws)
+    del train_batch, train_draws
     engine_path_phase(vol, lumen, branch)
+    emit({"drivers_batch1_kernels": train_kernel_phase(batch=1)})
+    drivers_path_phase(vol, lumen, branch, bare_step_s)
     # each kernel's launches from the path that runs it
     launches = {**{k: main_launches[k] for k in EPILOGUE_TABLES},
                 **{k: train_launches[k] for k in ("phased_normalize", "max_pool_s2d_bwd")},

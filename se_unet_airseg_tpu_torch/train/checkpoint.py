@@ -1,26 +1,52 @@
-"""Per-epoch weight snapshots of the port's parameter tree.
+"""Checkpointing: per-epoch weight snapshots, full states for resume, and
+the JAX package's parameter files.
 
 The reference saves a bare state_dict every epoch per stage
 (`saved_model/stage_*/SE_UNet_<ep>.pth`, reference train.py:322-324,
 510-512, 625-627). The port keeps the cadence and naming
 (`SE_UNet_<ep>.pt`) and stores its parameter tree (DHWIO tensors,
-`torch.save`), which `SlidingWindowRunner` takes as it is; reference
-`.pth` state_dicts load through `models.load_torch_checkpoint`.
+`torch.save`), which `SlidingWindowRunner` takes as it is. `load_params`
+also reads reference `.pth` state_dicts (through
+`models.load_torch_checkpoint`) and the JAX package's `.msgpack`
+parameter files (flax's msgpack encoding, read by a decoder of the
+port's own: the card's machine has neither flax nor msgpack), so a
+model trained by either continues here.
+
+`save_state` / `load_state` persist the parameters, the optimizer's
+state and the step (`state_<ep>.pt`) for exact resume, which the
+reference lacks (it restarts the optimizer on every resume). The JAX
+package's full states (`state_<ep>.msgpack`, optax moments) are not
+read.
 """
 
 from __future__ import annotations
 
 import os
+import struct
 
+import numpy as np
 import torch
 
-from ..models.torch_import import load_torch_checkpoint
+from ..models.torch_import import (
+    load_torch_checkpoint,
+    params_from_state_dict,
+    state_dict_from_jax_params,
+)
 
 
 def _to_host(tree):
     if isinstance(tree, dict):
         return {k: _to_host(v) for k, v in tree.items()}
     return tree.detach().to("cpu").contiguous()
+
+
+def _paths(tree, prefix=()):
+    """(path, leaf) of every leaf, in the tree's order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, prefix + (k,))
+    else:
+        yield prefix, tree
 
 
 def save_params(params, model_dir: str, epoch: int) -> str:
@@ -34,7 +60,150 @@ def save_params(params, model_dir: str, epoch: int) -> str:
 
 def load_params(path: str) -> dict:
     """Load a parameter tree (on the CPU) from a `.pt` file written by
-    `save_params` or a reference `.pth` state_dict."""
+    `save_params`, a reference `.pth` state_dict or a JAX package
+    `.msgpack` parameter file (`SE_UNet_<ep>.msgpack`)."""
     if path.endswith(".pth"):
         return load_torch_checkpoint(path)
+    if path.endswith(".msgpack"):
+        with open(path, "rb") as f:
+            tree = msgpack_restore(f.read())
+        return params_from_state_dict(state_dict_from_jax_params(tree))
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def save_state(state, model_dir: str, epoch: int) -> str:
+    """Write `<model_dir>/state_<epoch>.pt`: the parameter tree, the
+    optimizer's `state_dict()`, the step, and the parameter paths in the
+    optimizer's order. Returns the path."""
+    os.makedirs(model_dir, exist_ok=True)
+    path = os.path.join(model_dir, f"state_{epoch}.pt")
+    torch.save({"params": _to_host(state.params),
+                "optimizer": state.optimizer.state_dict(),
+                "order": [list(p) for p, _ in _paths(state.params)],
+                "step": int(state.step)}, path)
+    return path
+
+
+def load_state(path: str, state):
+    """Load a `save_state` file into `state` (a TrainState over a tree of
+    the same paths) in place: its parameter leaves take the saved values,
+    its optimizer the saved moments (matched by path, whatever the order
+    of either tree), its step the saved step. Returns `state`."""
+    data = torch.load(path, map_location="cpu", weights_only=True)
+    saved = dict((tuple(p), t) for p, t in _paths(data["params"]))
+    order = [p for p, _ in _paths(state.params)]
+    if sorted(order) != sorted(saved):
+        raise ValueError(f"{path}: its parameter paths differ from the state's")
+    with torch.no_grad():
+        for p, leaf in _paths(state.params):
+            leaf.copy_(saved[p])
+    # the saved state_dict keys the moments by the saved order; the
+    # optimizer pairs its group's ids, position by position, with its own
+    # parameters, which run in the state's order
+    opt = data["optimizer"]
+    (group,) = opt["param_groups"]
+    saved_id = {tuple(p): group["params"][i] for i, p in enumerate(data["order"])}
+    opt["param_groups"] = [{**group, "params": [saved_id[p] for p in order]}]
+    state.optimizer.load_state_dict(opt)
+    state.step = int(data["step"])
+    return state
+
+
+# ------------------------------------------------ msgpack (flax's encoding)
+
+_FLAX_NDARRAY, _FLAX_NPSCALAR = 1, 3  # flax.serialization's ext type codes
+
+
+class _Reader:
+    """Big-endian cursor over a msgpack byte string."""
+
+    def __init__(self, data: bytes):
+        self.data, self.pos = memoryview(data), 0
+
+    def take(self, n: int) -> bytes:
+        if self.pos + n > len(self.data):
+            raise ValueError("msgpack data ends early")
+        out = self.data[self.pos:self.pos + n].tobytes()
+        self.pos += n
+        return out
+
+    def uint(self, n: int) -> int:
+        return int.from_bytes(self.take(n), "big")
+
+    def sint(self, n: int) -> int:
+        return int.from_bytes(self.take(n), "big", signed=True)
+
+
+def _flax_ndarray(payload: bytes) -> np.ndarray:
+    shape, dtype, buf = _unpack(_Reader(payload))
+    return np.frombuffer(buf, dtype=np.dtype(dtype)).reshape(shape).copy()
+
+
+def _ext(code: int, payload: bytes):
+    if code == _FLAX_NDARRAY:
+        return _flax_ndarray(payload)
+    if code == _FLAX_NPSCALAR:
+        return _flax_ndarray(payload)[()]
+    raise ValueError(f"unsupported msgpack ext type {code}")
+
+
+def _unpack(r: _Reader):
+    b = r.uint(1)
+    if b <= 0x7F:
+        return b
+    if b >= 0xE0:
+        return b - 0x100
+    if 0x80 <= b <= 0x8F:
+        return _map(r, b & 0x0F)
+    if 0x90 <= b <= 0x9F:
+        return [_unpack(r) for _ in range(b & 0x0F)]
+    if 0xA0 <= b <= 0xBF:
+        return r.take(b & 0x1F).decode()
+    if b == 0xC0:
+        return None
+    if b in (0xC2, 0xC3):
+        return b == 0xC3
+    if b in (0xC4, 0xC5, 0xC6):  # bin 8/16/32
+        return r.take(r.uint(1 << (b - 0xC4)))
+    if b in (0xC7, 0xC8, 0xC9):  # ext 8/16/32
+        n = r.uint(1 << (b - 0xC7))
+        code = r.sint(1)
+        return _ext(code, r.take(n))
+    if b == 0xCA:
+        return struct.unpack(">f", r.take(4))[0]
+    if b == 0xCB:
+        return struct.unpack(">d", r.take(8))[0]
+    if 0xCC <= b <= 0xCF:  # uint 8/16/32/64
+        return r.uint(1 << (b - 0xCC))
+    if 0xD0 <= b <= 0xD3:  # int 8/16/32/64
+        return r.sint(1 << (b - 0xD0))
+    if 0xD4 <= b <= 0xD8:  # fixext 1/2/4/8/16
+        code = r.sint(1)
+        return _ext(code, r.take(1 << (b - 0xD4)))
+    if b in (0xD9, 0xDA, 0xDB):  # str 8/16/32
+        return r.take(r.uint(1 << (b - 0xD9))).decode()
+    if b in (0xDC, 0xDD):  # array 16/32
+        return [_unpack(r) for _ in range(r.uint(2 if b == 0xDC else 4))]
+    if b in (0xDE, 0xDF):  # map 16/32
+        return _map(r, r.uint(2 if b == 0xDE else 4))
+    raise ValueError(f"unsupported msgpack type byte 0x{b:02x}")
+
+
+def _map(r: _Reader, n: int) -> dict:
+    out = {}
+    for _ in range(n):
+        k = _unpack(r)
+        out[k] = _unpack(r)
+    return out
+
+
+def msgpack_restore(data: bytes):
+    """Decode a msgpack document as flax's `msgpack_restore` does: maps,
+    arrays, str/bin, ints, floats, nil and booleans, with flax's ndarray
+    (ext 1) and numpy scalar (ext 3) types as numpy values. Arrays that
+    flax splits into chunks (over 2^30 bytes) are not reassembled."""
+    r = _Reader(data)
+    out = _unpack(r)
+    if r.pos != len(r.data):
+        raise ValueError("trailing bytes after the msgpack document")
+    return out

@@ -112,7 +112,8 @@ def test_resolve_device():
 
 def test_port_imports_no_jax():
     """Importing every module of the port, and chip_smoke, loads no JAX
-    module and no module of the JAX package."""
+    module, no module of the JAX package, and none of flax, optax or
+    msgpack (the GPU host has none of them)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import se_unet_airseg_tpu_torch as pkg\n"
@@ -120,6 +121,7 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0].startswith('jax')\n"
+        "       or m.split('.')[0] in ('flax', 'optax', 'msgpack')\n"
         "       or m == 'se_unet_airseg_tpu' or m.startswith('se_unet_airseg_tpu.')]\n"
         "print(len([m for m in sys.modules if m.startswith('se_unet_airseg_tpu_torch')]))\n"
         "sys.exit('loaded: ' + ', '.join(bad) if bad else 0)\n"
