@@ -100,6 +100,27 @@ Needs one CUDA card and nvcc; exits non-zero without them. Phases:
    against phase 8's, peak memory; every loss finite, every step's
    launches 10/5/5/2 (the B=1 replay steps too), every validation's 10/5
    per tile batch, the files each run writes (`drivers_path`);
+9c. curriculum path: the whole 3-stage curriculum through its entry
+   point, `cli.train.main`, at full width, bf16, cube 128, batch 8, one
+   epoch per stage, remat at the CLI's default (on), on the two 160^3
+   cases, in a directory that holds only the raw data, the masks and
+   base_dict.json: the port's priors (LIB weights, skeletons and parses
+   of train and val), then stage 1 -> pred_1 -> stage 2 -> pred_2 ->
+   save_weight_break -> stage 3 -> the DTI re-validations of stages 2
+   and 3. Seconds by part, per stage what `drivers_path` reports, peak
+   memory per stage, the voxels of pred_1 / pred_2, the break skeleton's
+   points; every loss finite, every step's launches 20/5/5/2 (remat runs
+   the 10 gathered blocks again in the backward; the B=1 replay steps
+   too), every validation and prediction 10/5 per tile batch, the
+   on-disk contract of tests/test_full_curriculum.py with `.pt` files.
+   Then `save_weight_break` alone on write_cases' hand-broken pred_2:
+   the break skeleton must hold every skeleton voxel of the gap and the
+   weight be finite and non-zero there (`curriculum_path`);
+9d. tree parsing: `cli.tree_parsing.main` with both parsers on the
+   phantom's airway lumen (320x256x320): seconds by stage, both branch
+   counts, which optional renders were written (they need matplotlib);
+   each parse map covers every lumen voxel, every artifact that is not a
+   render exists (`tree_parsing`);
 10. conv_stats kernels: `phased_conv_stats` (the wgmma kernel, `design`
    "wgmma" on its lines) at the 5 phased and `dil2_conv_stats` (the
    halo-brick wgmma kernel, `design` "halo-brick wgmma", with its tile:
@@ -174,12 +195,18 @@ import torch
 import torch.nn.functional as F
 
 from se_unet_airseg_tpu_torch import post
+from se_unet_airseg_tpu_torch.cli import train as cli_train
+from se_unet_airseg_tpu_torch.cli import tree_parsing as tp_cli
 from se_unet_airseg_tpu_torch.data import tile_positions
+from se_unet_airseg_tpu_torch.data.splits import load_json_file
 from se_unet_airseg_tpu_torch.infer import SlidingWindowRunner, engine
 from se_unet_airseg_tpu_torch.infer import sliding_window as psw
 from se_unet_airseg_tpu_torch.io import read_nifti, write_nifti
+from se_unet_airseg_tpu_torch.pipeline import orchestrate, priors
 from se_unet_airseg_tpu_torch.pipeline.preprocess import load_canonical
+from se_unet_airseg_tpu_torch.post import atm22 as post_atm22
 from se_unet_airseg_tpu_torch.post import mesh as post_mesh
+from se_unet_airseg_tpu_torch.post import topology as post_topology
 from se_unet_airseg_tpu_torch.models import (
     SEUNet,
     SEUNetConfig,
@@ -1369,19 +1396,36 @@ def card_cpu_phase(vol: np.ndarray, params, tmp: str) -> None:
         raise AssertionError("card and CPU network_prediction differ away from a threshold")
 
 
-def write_cases(vol: np.ndarray, lumen: torch.Tensor, branch: np.ndarray, root: str):
-    """The ENGINE_CASES crops as an AFTER_DATA tree with every prior the
-    entry points and the three training stages read: the port's skeleton
-    of the lumen (train, val, test), the segment map as the branch parse,
-    the upper half of the lumen as the stage-1 prediction, the port's LIB
-    weights (float16), and stage-3 break priors made by hand: the lumen
-    with a 4-slice axial gap at the middle of its extent as the stage-2
-    prediction, the skeleton's voxels in the gap as the break skeleton
-    ((3, N) coordinates), the lumen within 4 slices of the gap as the
-    break weight (float16); and base_dict.json: both cases train, the
-    first validates."""
+def write_raw_cases(vol: np.ndarray, lumen: torch.Tensor, root: str):
+    """The ENGINE_CASES crops as an AFTER_DATA tree (the CT as int16
+    HU+1024, the lumen as the mask) and base_dict.json: both cases
+    train, the first validates. Returns (data_root, file_root)."""
     lum = lumen.cpu().numpy()
     data_root, file_root = os.path.join(root, "AFTER_DATA"), os.path.join(root, "data")
+    for name, org in ENGINE_CASES.items():
+        sl = tuple(slice(o, o + ENGINE_CUT) for o in org)
+        for sub, arr in (("data", vol[sl]), ("mask", lum[sl].astype(np.uint8))):
+            os.makedirs(os.path.join(data_root, sub), exist_ok=True)
+            write_nifti(os.path.join(data_root, sub, f"{name}{sub}_cut.nii.gz"), arr)
+    names = list(ENGINE_CASES)
+    os.makedirs(file_root, exist_ok=True)
+    with open(os.path.join(file_root, "base_dict.json"), "w") as f:
+        json.dump({"0": {"train": names, "val": names[:1]}}, f)
+    return data_root, file_root
+
+
+def write_cases(vol: np.ndarray, lumen: torch.Tensor, branch: np.ndarray, root: str):
+    """`write_raw_cases` and every prior the entry points and the three
+    training stages read: the port's skeleton of the lumen (train, val,
+    test), the segment map as the branch parse, the upper half of the
+    lumen as the stage-1 prediction, the port's LIB weights (float16),
+    and stage-3 break priors made by hand: the lumen with a 4-slice axial
+    gap at the middle of its extent as the stage-2 prediction, the
+    skeleton's voxels in the gap as the break skeleton ((3, N)
+    coordinates), the lumen within 4 slices of the gap as the break
+    weight (float16)."""
+    data_root, file_root = write_raw_cases(vol, lumen, root)
+    lum = lumen.cpu().numpy()
     for name, org in ENGINE_CASES.items():
         sl = tuple(slice(o, o + ENGINE_CUT) for o in org)
         mask = lum[sl].astype(np.uint8)
@@ -1394,9 +1438,7 @@ def write_cases(vol: np.ndarray, lumen: torch.Tensor, branch: np.ndarray, root: 
         br_w[near] = mask[near]
         if not in_gap.any():
             raise AssertionError(f"{name}: no skeleton voxel in the break gap")
-        files = {("AFTER_DATA", "data", name + "data_cut.nii.gz"): vol[sl],
-                 ("AFTER_DATA", "mask", name + "mask_cut.nii.gz"): mask,
-                 ("data", "pred_1", name + ".nii.gz"): mask * (np.arange(ENGINE_CUT) <
+        files = {("data", "pred_1", name + ".nii.gz"): mask * (np.arange(ENGINE_CUT) <
                                                                ENGINE_CUT // 2)[:, None, None],
                  ("data", "pred_2", name + ".nii.gz"): broken,
                  ("data", "skeleton", name + "mask_cut.nii.gz"): skel}
@@ -1414,9 +1456,6 @@ def write_cases(vol: np.ndarray, lumen: torch.Tensor, branch: np.ndarray, root: 
                 np.save(path, arr)
             else:
                 write_nifti(path, arr)
-    names = list(ENGINE_CASES)
-    with open(os.path.join(file_root, "base_dict.json"), "w") as f:
-        json.dump({"0": {"train": names, "val": names[:1]}}, f)
     return data_root, file_root
 
 
@@ -1535,9 +1574,10 @@ class DriverProbe:
     checkpoint and resume point; the rest of the wall time as "other"),
     each step's and each validation's launches,
     every step's loss, and with `capture_first` the step count and AdamW
-    moments the first step starts from."""
+    moments the first step starts from. Every step must launch
+    `step_launches`."""
 
-    def __init__(self, capture_first: bool = False):
+    def __init__(self, capture_first: bool = False, step_launches: dict = STEP_LAUNCHES):
         self.clock = clock = StepClock()
         self.main_s, self.losses, self.val_launches = [], [], []
         self.steps = {"main": 0, "replay": 0}
@@ -1586,9 +1626,9 @@ class DriverProbe:
                     self.main_s.append(time.perf_counter() - t0)
                     clock.s["main_steps"] += self.main_s[-1]
                 diff = {k: launch_counts[k] - before[k] for k in launch_counts}
-                if diff != STEP_LAUNCHES:
+                if diff != step_launches:
                     raise AssertionError(f"a batch-{b} driver step launched {diff}, want "
-                                         f"{STEP_LAUNCHES}")
+                                         f"{step_launches}")
                 self.steps["main" if b > 1 else "replay"] += 1
                 self.losses.append(aux["loss"])
                 return state, aux
@@ -1733,6 +1773,250 @@ def drivers_path_phase(vol: np.ndarray, lumen: torch.Tensor, branch: np.ndarray,
     torch.cuda.empty_cache()
 
 
+def expect_launches(what: str, got: dict, want: dict) -> None:
+    if got != want:
+        raise AssertionError(f"{what} launched {got}, want {want}")
+
+
+def curriculum_path_phase(vol: np.ndarray, lumen: torch.Tensor, branch: np.ndarray,
+                          bare_step_s: float) -> None:
+    """The whole curriculum through its entry point, `cli.train.main`, at
+    full width: bf16, cube 128, batch 8, one epoch per stage, remat at
+    the CLI's default (on), on the two 160^3 cases. The directory holds
+    only the raw data, the masks and base_dict.json: the LIB weights,
+    skeletons and parses come from the port's `pipeline.priors`, and the
+    run writes pred_1, pred_2, BR_weight and br_skel itself. Per part its
+    seconds (priors, each stage, pred_1, pred_2, save_weight_break, the
+    DTI validations), per stage what `drivers_path` reports, the
+    launches, the voxels of pred_1 / pred_2 and the break skeleton's
+    points. Every loss finite, every step 20/5/5/2 launches (remat runs
+    the 10 gathered blocks again in the backward), every validation and
+    prediction 10/5 per tile batch, the on-disk contract of
+    tests/test_full_curriculum.py with `.pt` files. Then
+    `save_weight_break` alone on write_cases' hand-broken pred_2: its
+    break skeleton must hold every skeleton voxel of the gap, its weight
+    be finite and non-zero there."""
+    t_phase = time.perf_counter()
+    n_tiles = tile_batches((ENGINE_CUT,) * 3, DRIVER_CUBE, DRIVER_CUBE // 2)
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        data_root, file_root = write_raw_cases(vol, lumen, tmp)
+        mask_dir, fp = os.path.join(data_root, "mask"), os.path.join(file_root, "base_dict.json")
+        pred_names = load_json_file(fp, "0", ("train", "val"))
+        val_names = load_json_file(fp, "0", ("val",))
+        seconds, line = defaultdict(float), {
+            "cube": DRIVER_CUBE, "batch": BATCH, "dtype": "bfloat16", "remat": True,
+            "epochs": [1, 1, 1], "cases": list(ENGINE_CASES), "cut": ENGINE_CUT,
+            "train_path_step_s": bare_step_s}
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        priors.save_lib_weights(mask_dir, os.path.join(file_root, "LIB_weight"))
+        for split, suffix in (("train", ""), ("val", "_val")):
+            priors.save_skeletons_and_parses(mask_dir, fp,
+                                             os.path.join(file_root, "tree_parse" + suffix),
+                                             os.path.join(file_root, "skeleton" + suffix),
+                                             split=split)
+        seconds["priors"] = time.perf_counter() - t0
+        stages_rec, preds, dti = {}, {}, []
+        train_fns = {n: getattr(orchestrate, f"train_stage{n}") for n in (1, 2, 3)}
+        pred_fn, break_fn, validate_fn = (orchestrate.save_stage_pred,
+                                          orchestrate.save_weight_break, engine.validate)
+
+        def timed_stage(n: int):
+            def run(cfg):
+                probe = DriverProbe(step_launches=REMAT_LAUNCHES)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                with probe.clock.stack:
+                    t0 = time.perf_counter()
+                    state = train_fns[n](cfg)
+                    torch.cuda.synchronize()
+                    wall_s = time.perf_counter() - t0
+                seconds[f"stage{n}"] += wall_s
+                losses = [float(v) for v in probe.losses]
+                if not losses or not all(math.isfinite(v) for v in losses):
+                    raise AssertionError(f"curriculum stage {n}: losses {losses}")
+                want_val = counts(gathered_epilogue=10 * n_tiles * len(val_names),
+                                  phased_epilogue=5 * n_tiles * len(val_names))
+                if len(probe.val_launches) != 1:
+                    raise AssertionError(f"curriculum stage {n}: {len(probe.val_launches)} "
+                                         "validations, want 1")
+                expect_launches(f"curriculum stage {n}'s validation", probe.val_launches[0],
+                                want_val)
+                want_steps = {"main": len(ENGINE_CASES),
+                              "replay": 0 if n == 1 else int(len(ENGINE_CASES) * BATCH * 0.3)}
+                if probe.steps != want_steps:
+                    raise AssertionError(f"curriculum stage {n}: steps {probe.steps}, want "
+                                         f"{want_steps}")
+                rec = {"main_steps": probe.steps["main"], "replay_steps": probe.steps["replay"],
+                       "wall_s": wall_s, "seconds": dict(probe.clock.s),
+                       "main_step_s": probe.main_s,
+                       "main_step_s_median": statistics.median(probe.main_s),
+                       "median_over_train_path_step":
+                           statistics.median(probe.main_s) / bare_step_s,
+                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "losses": losses}
+                rec["seconds"]["other"] = wall_s - sum(probe.clock.s.values())
+                stages_rec[f"stage{n}"] = rec
+                return state
+            return run
+
+        def timed_pred(*args, **kw):
+            which = os.path.basename(os.path.normpath(args[4]))
+            before = dict(launch_counts)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = pred_fn(*args, **kw)
+            torch.cuda.synchronize()
+            seconds[which] += time.perf_counter() - t0
+            n = n_tiles * len(pred_names)
+            preds[which] = {k: launch_counts[k] - before[k] for k in launch_counts}
+            expect_launches(which, preds[which],
+                            counts(gathered_epilogue=10 * n, phased_epilogue=5 * n))
+            return out
+
+        def timed_break(*args, **kw):
+            t0 = time.perf_counter()
+            out = break_fn(*args, **kw)
+            seconds["save_weight_break"] += time.perf_counter() - t0
+            return out
+
+        def timed_validate(*args, **kw):
+            if not args[6].endswith(".dti"):  # a stage's own validation
+                return validate_fn(*args, **kw)
+            before = dict(launch_counts)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = validate_fn(*args, **kw)
+            torch.cuda.synchronize()
+            seconds["dti_validation"] += time.perf_counter() - t0
+            got = {k: launch_counts[k] - before[k] for k in launch_counts}
+            n = n_tiles * len(val_names)
+            expect_launches("a DTI re-validation", got,
+                            counts(gathered_epilogue=10 * n, phased_epilogue=5 * n))
+            dti.append({"stage": kw["stage"], "epoch": args[5], "result": list(out)})
+            if not all(math.isfinite(v) for v in out):
+                raise AssertionError(f"DTI re-validation: non-finite metric {out}")
+            return out
+
+        with contextlib.ExitStack() as stack:
+            for owner, name, fn in [*((orchestrate, f"train_stage{n}", timed_stage(n))
+                                      for n in (1, 2, 3)),
+                                    (orchestrate, "save_stage_pred", timed_pred),
+                                    (orchestrate, "save_weight_break", timed_break),
+                                    (engine, "validate", timed_validate)]:
+                stack.enter_context(mock.patch.object(owner, name, fn))
+            t0 = time.perf_counter()
+            cli_train.main(["--data_root", data_root, "--file_root", file_root,
+                            "--saved_model", os.path.join(tmp, "saved_model"),
+                            "--log_dir", os.path.join(tmp, "LOG"), "--epochs", "1", "1", "1",
+                            "--batch_size", str(BATCH), "--cube", str(DRIVER_CUBE)])
+            torch.cuda.synchronize()
+            line["run_s"] = time.perf_counter() - t0
+        launches = dict(launch_counts)
+        if any(launches[k] == 0 for k in ("gathered_epilogue", "phased_epilogue",
+                                          "phased_normalize", "max_pool_s2d_bwd")):
+            raise AssertionError(f"curriculum path launches {launches}")
+        if len(dti) != 2 or sorted(stages_rec) != ["stage1", "stage2", "stage3"]:
+            raise AssertionError(f"curriculum: DTI validations {dti}, stages {sorted(stages_rec)}")
+        # the on-disk contract of tests/test_full_curriculum.py, .pt files
+        want = [os.path.join(tmp, "saved_model", s, "SE_UNet_0.pt")
+                for s in ("stage_one", "stage_two", "stage_three")]
+        want += [os.path.join(tmp, "LOG", f) for f in (
+            "log_stage_one.txt", "log_stage_two.txt", "log_stage_three.txt",
+            "log_stage_two.txt.dti", "log_stage_three.txt.dti")]
+        want += [os.path.join(file_root, d, n + x) for n in pred_names
+                 for d, x in (("pred_1", ".nii.gz"), ("pred_2", ".nii.gz"),
+                              ("BR_weight", ".npy"), ("br_skel", ".npy"))]
+        missing = [f for f in want if not os.path.exists(f)]
+        if missing:
+            raise AssertionError(f"curriculum: missing {missing}")
+        line["pred_voxels"] = {
+            d: {n: int(read_nifti(os.path.join(file_root, d, n + ".nii.gz")).array.sum())
+                for n in ENGINE_CASES} for d in ("pred_1", "pred_2")}
+        line["break_skeleton_points"] = {
+            n: int(np.load(os.path.join(file_root, "br_skel", n + ".npy")).shape[1])
+            for n in ENGINE_CASES}
+        line.update(seconds=dict(seconds), stages=stages_rec, pred_launches=preds,
+                    dti_validations=dti, launches=launches)
+
+        # save_weight_break alone on write_cases' hand-broken pred_2
+        hand = os.path.join(tmp, "hand")
+        h_data, h_file = write_cases(vol, lumen, branch, hand)
+        out_w, out_s = os.path.join(hand, "BR_weight_port"), os.path.join(hand, "br_skel_port")
+        t0 = time.perf_counter()
+        priors.save_weight_break(h_data, os.path.join(h_file, "pred_2"), out_w, out_s,
+                                 os.path.join(h_file, "base_dict.json"))
+        rec = {"s": time.perf_counter() - t0}
+        for n in ENGINE_CASES:
+            gap = {tuple(c) for c in np.load(os.path.join(h_file, "br_skel", n + ".npy")).T}
+            got = {tuple(c) for c in np.load(os.path.join(out_s, n + ".npy")).T}
+            w = np.load(os.path.join(out_w, n + ".npy")).astype(np.float32)
+            at_gap = w[tuple(np.array(sorted(gap)).T)]
+            if not gap <= got or not np.isfinite(w).all() or not (at_gap > 0).all():
+                raise AssertionError(
+                    f"hand-broken {n}: {len(gap - got)} of {len(gap)} gap skeleton voxels "
+                    f"missing from br_skel; weight finite {bool(np.isfinite(w).all())}, "
+                    f"min at the gap {float(at_gap.min())}")
+            rec[n] = {"gap_skeleton_voxels": len(gap), "break_skeleton_points": len(got),
+                      "weight_min_at_gap": float(at_gap.min()),
+                      "weight_max": float(w.max())}
+        line["hand_broken_weight_break"] = rec
+    line["phase_wall_s"] = time.perf_counter() - t_phase
+    emit({"curriculum_path": line})
+    torch.cuda.empty_cache()
+
+
+def tree_parsing_phase(lumen: torch.Tensor) -> None:
+    """`cli.tree_parsing.main` with --save_path and --save_ATM22_path on
+    the phantom's airway lumen at full size: seconds by stage, the
+    branch counts of both parsers, which optional renders were written
+    (they need matplotlib); each parse map must cover every lumen voxel
+    and every artifact that is not a render must exist."""
+    t_phase = time.perf_counter()
+    mask = lumen.cpu().numpy().astype(np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        masks, ours, atm = (os.path.join(tmp, d) for d in ("masks", "ours", "atm22"))
+        os.makedirs(masks)
+        write_nifti(os.path.join(masks, "PHANTOM.nii.gz"), mask)
+        clock = StepClock()
+        for owner, name, step in ((tp_cli, "ours_parse_case", "ours"),
+                                  (tp_cli, "atm22_parse_case", "atm22"),
+                                  (post_topology.TopologyTree, "sub", "ours_sub"),
+                                  (post_topology.TopologyTree, "regrade", "ours_regrade"),
+                                  (post_topology.TopologyTree, "parse_map", "ours_parse_map"),
+                                  (post_atm22, "atm22_centerline", "atm22_centerline"),
+                                  (post_atm22, "atm22_refine", "atm22_refine"),
+                                  (post_mesh, "export_mask_stl", "stl")):
+            clock.patch(owner, name, step)
+        with clock.stack:
+            t0 = time.perf_counter()
+            tp_cli.main(["--pred_mask_path", masks, "--save_path", ours,
+                         "--save_ATM22_path", atm])
+            wall_s = time.perf_counter() - t0
+        line = {"shape": list(mask.shape), "lumen_voxels": int(mask.sum()), "wall_s": wall_s,
+                "seconds": dict(clock.s), "branches": {}, "renders": {}}
+        for parser, out, must, renders in (
+                ("ours", ours, ("_parse.npy", "_parse_map.nii.gz", "_time.txt", ".stl"),
+                 ("_line.png", "_parse.png", "_parse.gif")),
+                ("atm22", atm, ("_parse_map.nii.gz", "_time.txt", ".stl"),
+                 (".png", "_model.png", ".gif"))):
+            missing = [x for x in must if not os.path.exists(os.path.join(out, "PHANTOM" + x))]
+            if missing:
+                raise AssertionError(f"tree parsing {parser}: missing {missing}")
+            parse = read_nifti(os.path.join(out, "PHANTOM_parse_map.nii.gz")).array
+            if parse.shape != mask.shape or not (parse[mask > 0] > 0).all():
+                raise AssertionError(f"tree parsing {parser}: the parse map leaves "
+                                     f"{int((parse[mask > 0] == 0).sum())} lumen voxels out")
+            with open(os.path.join(out, "PHANTOM_time.txt")) as f:
+                line["branches"][parser] = int(f.read().splitlines()[-1].split()[-1])
+            line["renders"][parser] = {x: os.path.exists(os.path.join(out, "PHANTOM" + x))
+                                       for x in renders}
+    line["phase_wall_s"] = time.perf_counter() - t_phase
+    emit({"tree_parsing": line})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1794,6 +2078,8 @@ def main() -> int:
     engine_path_phase(vol, lumen, branch)
     emit({"drivers_batch1_kernels": train_kernel_phase(batch=1)})
     drivers_path_phase(vol, lumen, branch, bare_step_s)
+    curriculum_path_phase(vol, lumen, branch, bare_step_s)
+    tree_parsing_phase(lumen)
     # each kernel's launches from the path that runs it
     launches = {**{k: main_launches[k] for k in EPILOGUE_TABLES},
                 **{k: train_launches[k] for k in ("phased_normalize", "max_pool_s2d_bwd")},

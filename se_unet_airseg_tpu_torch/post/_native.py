@@ -49,11 +49,12 @@ def _load():
         lib = ctypes.CDLL(str(_build()))
     except (OSError, subprocess.CalledProcessError):
         return None
-    i64, u8p, u32p, f32p, i64p = (
+    i64, u8p, u32p, f32p, i32p, i64p = (
         ctypes.c_int64,
         np.ctypeslib.ndpointer(np.uint8, flags="C"),
         np.ctypeslib.ndpointer(np.uint32, flags="C"),
         np.ctypeslib.ndpointer(np.float32, flags="C"),
+        np.ctypeslib.ndpointer(np.int32, flags="C"),
         np.ctypeslib.ndpointer(np.int64, flags="C"),
     )
     lib.cc3d_label.restype = i64
@@ -66,6 +67,15 @@ def _load():
     lib.skeletonize3d.argtypes = [u8p, i64, i64, i64]
     lib.fill_holes.restype = None
     lib.fill_holes.argtypes = [u8p, i64, i64, i64, ctypes.c_int, u8p]
+    lib.edt_sq.restype = None
+    lib.edt_sq.argtypes = [u8p, i64, i64, i64, f32p, ctypes.c_void_p]
+    for name in ("binary_dilate6", "binary_erode6"):
+        getattr(lib, name).restype = None
+        getattr(lib, name).argtypes = [u8p, i64, i64, i64, u8p]
+    lib.box_convolve27.restype = None
+    lib.box_convolve27.argtypes = [f32p, i64, i64, i64, f32p]
+    lib.label_bboxes.restype = None
+    lib.label_bboxes.argtypes = [i32p, i64, i64, i64, i64, i64p]
     lib.march_tets.restype = ctypes.c_int64
     lib.march_tets.argtypes = [f32p, i64, i64, i64, ctypes.c_float, ctypes.c_void_p, i64]
     return lib
@@ -169,3 +179,91 @@ def fill_holes(mask: np.ndarray) -> np.ndarray:
 
         out = ndimage.binary_fill_holes(m).astype(np.uint8)
     return out[0] if squeeze else out
+
+
+def binary_dilation(mask: np.ndarray) -> np.ndarray:
+    """One binary dilation with scipy's default conn-1 (6-neighborhood)
+    structure; 3-D uint8 out."""
+    m = np.ascontiguousarray(mask != 0).astype(np.uint8)
+    lib = _load()
+    if lib is not None:
+        out = np.empty_like(m)
+        lib.binary_dilate6(m, *m.shape, out)
+        return out
+    from scipy import ndimage
+
+    return ndimage.binary_dilation(m).astype(np.uint8)
+
+
+def binary_closing(mask: np.ndarray) -> np.ndarray:
+    """Binary closing (dilation then erosion), scipy defaults: conn-1
+    structure, border_value=0 on both passes."""
+    m = np.ascontiguousarray(mask != 0).astype(np.uint8)
+    lib = _load()
+    if lib is not None:
+        tmp = np.empty_like(m)
+        lib.binary_dilate6(m, *m.shape, tmp)
+        out = np.empty_like(m)
+        lib.binary_erode6(tmp, *m.shape, out)
+        return out
+    from scipy import ndimage
+
+    return ndimage.binary_closing(m).astype(np.uint8)
+
+
+def find_objects(labels: np.ndarray, max_label: int):
+    """Per-label bounding-box slices, matching
+    scipy.ndimage.find_objects(labels, max_label): None for labels that
+    never occur."""
+    lab = np.ascontiguousarray(labels, np.int32)
+    lib = _load()
+    if lib is None:
+        from scipy import ndimage
+
+        return ndimage.find_objects(lab, max_label=max_label)
+    out = np.zeros((max_label, 6), np.int64)
+    lib.label_bboxes(lab, *lab.shape, max_label, out)
+    return [
+        None if r[0] < 0 else (
+            slice(int(r[0]), int(r[1])),
+            slice(int(r[2]), int(r[3])),
+            slice(int(r[4]), int(r[5])),
+        )
+        for r in out
+    ]
+
+
+def box_convolve27(vol: np.ndarray) -> np.ndarray:
+    """3x3x3 all-ones convolution, reflect boundary: equivalent to
+    scipy.ndimage.convolve(vol, np.ones((3, 3, 3))) with mode='reflect'."""
+    v = np.ascontiguousarray(vol, np.float32)
+    lib = _load()
+    if lib is not None:
+        out = np.empty_like(v)
+        lib.box_convolve27(v, *v.shape, out)
+        return out
+    from scipy import ndimage
+
+    return ndimage.convolve(v, np.ones((3, 3, 3), np.float32))
+
+
+def edt_with_indices(mask: np.ndarray, return_indices: bool = True):
+    """Exact EDT of `mask` (distance to the nearest zero voxel), with the
+    nearest zero's coordinates unless `return_indices` is False, matching
+    scipy.ndimage.distance_transform_edt's contract."""
+    m = np.ascontiguousarray(mask != 0).astype(np.uint8)
+    lib = _load()
+    if lib is not None:
+        dist = np.zeros(m.shape, np.float32)
+        if return_indices:
+            idx = np.zeros((3,) + m.shape, np.int32)
+            lib.edt_sq(m, *m.shape, dist, idx.ctypes.data_as(ctypes.c_void_p))
+            return np.sqrt(dist), idx
+        lib.edt_sq(m, *m.shape, dist, None)
+        return np.sqrt(dist)
+    from scipy import ndimage
+
+    if return_indices:
+        dist, idx = ndimage.distance_transform_edt(m, return_indices=True)
+        return dist.astype(np.float32), idx.astype(np.int32)
+    return ndimage.distance_transform_edt(m).astype(np.float32)

@@ -14,9 +14,10 @@ model trained by either continues here.
 
 `save_state` / `load_state` persist the parameters, the optimizer's
 state and the step (`state_<ep>.pt`) for exact resume, which the
-reference lacks (it restarts the optimizer on every resume). The JAX
-package's full states (`state_<ep>.msgpack`, optax moments) are not
-read.
+reference lacks (it restarts the optimizer on every resume).
+`load_state` also reads the JAX package's full states
+(`state_<ep>.msgpack`: the parameters, the optax AdamW state and the
+step), so a run that the JAX drivers left resumes here.
 """
 
 from __future__ import annotations
@@ -67,7 +68,7 @@ def load_params(path: str) -> dict:
     if path.endswith(".msgpack"):
         with open(path, "rb") as f:
             tree = msgpack_restore(f.read())
-        return params_from_state_dict(state_dict_from_jax_params(tree))
+        return _jax_tree(tree)
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
@@ -84,19 +85,28 @@ def save_state(state, model_dir: str, epoch: int) -> str:
     return path
 
 
-def load_state(path: str, state):
-    """Load a `save_state` file into `state` (a TrainState over a tree of
-    the same paths) in place: its parameter leaves take the saved values,
-    its optimizer the saved moments (matched by path, whatever the order
-    of either tree), its step the saved step. Returns `state`."""
-    data = torch.load(path, map_location="cpu", weights_only=True)
-    saved = dict((tuple(p), t) for p, t in _paths(data["params"]))
+def _copy_params(path: str, saved: dict, state) -> list:
+    """Copy `saved` ({path: tensor}) into the state's parameter leaves;
+    returns the state's paths in its optimizer's order."""
     order = [p for p, _ in _paths(state.params)]
     if sorted(order) != sorted(saved):
         raise ValueError(f"{path}: its parameter paths differ from the state's")
     with torch.no_grad():
         for p, leaf in _paths(state.params):
             leaf.copy_(saved[p])
+    return order
+
+
+def load_state(path: str, state):
+    """Load a `save_state` file, or a JAX package `state_<ep>.msgpack`
+    (`load_jax_state`), into `state` (a TrainState over a tree of the
+    same paths) in place: its parameter leaves take the saved values,
+    its optimizer the saved moments (matched by path, whatever the order
+    of either tree), its step the saved step. Returns `state`."""
+    if path.endswith(".msgpack"):
+        return load_jax_state(path, state)
+    data = torch.load(path, map_location="cpu", weights_only=True)
+    order = _copy_params(path, {tuple(p): t for p, t in _paths(data["params"])}, state)
     # the saved state_dict keys the moments by the saved order; the
     # optimizer pairs its group's ids, position by position, with its own
     # parameters, which run in the state's order
@@ -106,6 +116,47 @@ def load_state(path: str, state):
     opt["param_groups"] = [{**group, "params": [saved_id[p] for p in order]}]
     state.optimizer.load_state_dict(opt)
     state.step = int(data["step"])
+    return state
+
+
+def _jax_tree(tree) -> dict:
+    """A JAX-layout tree (parameters or one of their moments) as the
+    port's tree: the leaf-wise bridge `load_params` applies."""
+    return params_from_state_dict(state_dict_from_jax_params(tree))
+
+
+def load_jax_state(path: str, state):
+    """Load a JAX package full state (`state_<ep>.msgpack`: flax's
+    encoding of its TrainState, whose optimizer state is
+    `optax.inject_hyperparams(optax.adamw)`'s) into `state` in place.
+    Mapped by parameter path: `params` to the leaves;
+    `opt_state/inner_state/0/{mu, nu}` to each parameter's AdamW
+    `exp_avg`, `exp_avg_sq`; that state's `count` to each parameter's
+    `step`; the hyperparameters `learning_rate`, `b1`, `b2`, `eps` and
+    `weight_decay` to the parameter group; `step` to `state.step`.
+    optax decays the weight inside its update and torch before it; the
+    two agree up to rounding. Returns `state`."""
+    with open(path, "rb") as f:
+        tree = msgpack_restore(f.read())
+    opt_state = tree["opt_state"]
+    adam, hp = opt_state["inner_state"]["0"], opt_state["hyperparams"]
+    if float(hp["eps_root"]) != 0.0:
+        raise ValueError(f"{path}: eps_root {float(hp['eps_root'])}; torch's AdamW has none")
+    order = _copy_params(path, dict(_paths(_jax_tree(tree["params"]))), state)
+    mu, nu = (dict(_paths(_jax_tree(adam[k]))) for k in ("mu", "nu"))
+    leaves = dict(_paths(state.params))
+    count = torch.tensor(float(adam["count"]), dtype=torch.float32)
+    (group,) = state.optimizer.state_dict()["param_groups"]
+    state.optimizer.load_state_dict({
+        "state": {i: {"step": count.clone(),
+                      "exp_avg": torch.empty_like(leaves[p]).copy_(mu[p]),
+                      "exp_avg_sq": torch.empty_like(leaves[p]).copy_(nu[p])}
+                  for i, p in enumerate(order)},
+        "param_groups": [{**group, "lr": float(hp["learning_rate"]),
+                          "betas": (float(hp["b1"]), float(hp["b2"])), "eps": float(hp["eps"]),
+                          "weight_decay": float(hp["weight_decay"]),
+                          "params": list(range(len(order)))}]})
+    state.step = int(tree["step"])
     return state
 
 

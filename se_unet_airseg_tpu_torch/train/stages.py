@@ -17,7 +17,8 @@ Each driver reproduces the reference loop structure:
 Every epoch writes `SE_UNet_<ep>.pt` and a full state (`state_<ep>.pt`,
 the two newest kept) with `resume_meta.json` (the scheduler's ratios and
 the validation history); a driver restarted on the same
-`model_savepath` resumes after the newest state. Drivers take small
+`model_savepath` resumes after the newest state, the JAX drivers'
+`state_<ep>.msgpack` included. Drivers take small
 injectable configs so tests can run 2-epoch versions on synthetic
 volumes.
 
@@ -117,12 +118,15 @@ class Draws:
 
 def _auto_resume(cfg: StageConfig, state):
     """Resume from the newest full state in model_savepath (the recovery
-    the reference lacks: its resume is commented-out torch.load lines).
-    Returns (state, start_epoch, meta), meta carrying scheduler state."""
-    paths = glob.glob(os.path.join(cfg.model_savepath, "state_*.pt"))
+    the reference lacks: its resume is commented-out torch.load lines):
+    the port's `state_<ep>.pt` or, from a run of the JAX drivers,
+    `state_<ep>.msgpack` (the port's file wins a tie). Returns (state,
+    start_epoch, meta), meta carrying scheduler state."""
+    paths = [p for ext in ("pt", "msgpack")
+             for p in glob.glob(os.path.join(cfg.model_savepath, f"state_*.{ext}"))]
     if not paths:
         return state, 0, {}
-    latest = max(paths, key=_epoch_of)
+    latest = max(paths, key=lambda p: (_epoch_of(p), p.endswith(".pt")))
     ep = _epoch_of(latest)
     state = load_state(latest, state)
     meta_path = os.path.join(cfg.model_savepath, "resume_meta.json")
