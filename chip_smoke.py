@@ -121,6 +121,31 @@ Needs one CUDA card and nvcc; exits non-zero without them. Phases:
    counts, which optional renders were written (they need matplotlib);
    each parse map covers every lumen voxel, every artifact that is not a
    render exists (`tree_parsing`);
+9e. data parallel path: the mesh's `data` axis (`parallel/mesh.py`).
+   NCCL takes one rank a card, so first one rank on NCCL (`env://` on
+   127.0.0.1): the sharded stage-1 step at 128^3, batch 8, bf16, against
+   the unsharded step on the same batch and draws with cuDNN's
+   deterministic algorithms (loss within rtol 1e-6, each gradient leaf
+   within 1e-6 of its norm beyond the unsharded step's own run-to-run
+   spread, launches 10/5/5/2). Then two ranks sharing the card over gloo
+   (spawned; their times are not a scaling figure): three f32 stage-1
+   steps at 32^3, global batch 4, 1 (replicated), 4 (the first against
+   one process, both with cuDNN's deterministic algorithms: the loss
+   within DP_F32_LOSS_RTOL, each gradient leaf within DP_F32_LEAF_RTOL of
+   its norm from one process forming the loss from the ranks' row blocks
+   and within DP_F32_BATCH_LEAF_RTOL from the B=4 step; after the three
+   the ranks' parameters and AdamW moments bitwise equal); the
+   stage-1 step at 128^3, global batch 8 (4 a rank), bf16: per rank the
+   median of DP_STEPS steps after a warm-up, the gradient all_reduce's
+   seconds (DP_ALLREDUCE_STEPS more steps), peak memory, launches
+   10/5/5/2 a step; the sharded runner (batch 8, 4 tiles a rank, bf16) on
+   the phantom: seconds a volume, launches 10/5 a tile batch on each
+   rank, the scores within DP_SCORE_ATOL of the one-process runner's, at
+   most DP_TRIT_FRACTION of the trits different from main_path's;
+   `train_stage2` for one epoch on the two 160^3 cuts (4 crops a rank):
+   every step's launches, the losses and parameters equal on the ranks,
+   the files written by rank 0 alone, the validation split by case
+   (`data_parallel_path`);
 10. conv_stats kernels: `phased_conv_stats` (the wgmma kernel, `design`
    "wgmma" on its lines) at the 5 phased and `dil2_conv_stats` (the
    halo-brick wgmma kernel, `design` "halo-brick wgmma", with its tile:
@@ -182,6 +207,7 @@ import json
 import math
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -192,6 +218,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from se_unet_airseg_tpu_torch import post
@@ -214,13 +241,14 @@ from se_unet_airseg_tpu_torch.models import (
     se_unet_apply,
     se_unet_apply_fast,
 )
-from se_unet_airseg_tpu_torch.models.se_unet import _DIL2_NG, _leaves, _tree_map
+from se_unet_airseg_tpu_torch.models.se_unet import _DIL2_NG, _leaves, _tree_map, draw_dropout
 from se_unet_airseg_tpu_torch.ops import build_kernels, conv3d, hu_dual_window, launch_counts
 from se_unet_airseg_tpu_torch.ops import conv_stats as pcs
 from se_unet_airseg_tpu_torch.ops import epilogue_s2d as eps
 from se_unet_airseg_tpu_torch.ops import norm_leaky, reset_launch_counts
 from se_unet_airseg_tpu_torch.ops import s2d as ps2d
 from se_unet_airseg_tpu_torch.ops.lib_filter import lib_weight_map
+from se_unet_airseg_tpu_torch.parallel import make_mesh, spawn
 from se_unet_airseg_tpu_torch.train import (
     create_train_state,
     make_loss_fn,
@@ -228,6 +256,7 @@ from se_unet_airseg_tpu_torch.train import (
     make_train_step,
 )
 from se_unet_airseg_tpu_torch.train import stages
+from se_unet_airseg_tpu_torch.train import step as pstep
 from se_unet_airseg_tpu_torch.train.checkpoint import _paths
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -289,6 +318,27 @@ ENGINE_CUT = 160
 ENGINE_CASES = {"CASE_a": (48, 48, 80), "CASE_b": (160, 48, 40)}
 CMP_CROP = (slice(96, 160), slice(96, 160), slice(128, 192))
 DRIVER_CUBE = 128  # the drivers' crop and validation tile
+# data_parallel_path: ranks sharing the card over gloo, timed steps and
+# volumes, the f32 check's (global batch, crop) and its bounds against
+# one process, cuDNN's deterministic algorithms on both sides: the loss,
+# a gradient leaf against one process forming the loss from the ranks'
+# row blocks (the sum over ranks alone), and against the B=4 step (the
+# card rounds a 1x1x1 conv's gradient differently at B=2 and B=4); and
+# the bounds on the sharded runner against one process (bf16: batch 4
+# against 8 a forward, the per-tile route against the s2d-folded one):
+# its scores, and the share of trits that differ from main_path's.
+# PERF.md (§6) puts each bound beside the sound runs' largest reading
+# and what planted faults read.
+DP_RANKS = 2
+DP_STEPS = 5
+DP_ALLREDUCE_STEPS = 3
+DP_VOLUMES = 3
+DP_F32 = (4, 32)
+DP_F32_LOSS_RTOL = 1e-6
+DP_F32_LEAF_RTOL = 1e-6
+DP_F32_BATCH_LEAF_RTOL = 1e-2
+DP_SCORE_ATOL = 0.02
+DP_TRIT_FRACTION = 1e-4
 
 
 def ptxas_report(log: str) -> dict:
@@ -1097,6 +1147,17 @@ def train_parity_phase():
                                  f"{float((a - r).norm())} against its norm {float(r.norm())}")
 
 
+def phantom_batch(vol: np.ndarray, lumen: torch.Tensor) -> dict:
+    """The train path's batch: 8 crops of 128^3 of the phantom along the
+    trachea and the two main bronchi (dual-windowed image, lumen label),
+    on lumen's device."""
+    origins = [(z, 64, x) for z in (0, 64, 128, 192) for x in (48, 144)]
+    hu = torch.from_numpy(vol).to(lumen.device)
+    crop = [(slice(z, z + 128), slice(y, y + 128), slice(x, x + 128)) for z, y, x in origins]
+    return {"image": hu_dual_window(torch.stack([hu[c] for c in crop]).float() - 1024.0),
+            "label": torch.stack([lumen[c] for c in crop]).float()}
+
+
 def train_path_phase(vol: np.ndarray, lumen: torch.Tensor):
     """make_train_step(stage=1) at full width, bf16, AdamW, on 8 crops of
     128^3 of the phantom: one warm-up step, TRAIN_STEPS timed steps."""
@@ -1105,13 +1166,7 @@ def train_path_phase(vol: np.ndarray, lumen: torch.Tensor):
     opt, _ = make_optimizer()
     state = create_train_state(tree, opt)
     del tree
-    # 8 crops along the trachea and the two main bronchi
-    origins = [(z, 64, x) for z in (0, 64, 128, 192) for x in (48, 144)]
-    hu = torch.from_numpy(vol).cuda()
-    crop = [(slice(z, z + 128), slice(y, y + 128), slice(x, x + 128)) for z, y, x in origins]
-    batch = {"image": hu_dual_window(torch.stack([hu[c] for c in crop]).float() - 1024.0),
-             "label": torch.stack([lumen[c] for c in crop]).float()}
-    del hu
+    batch = phantom_batch(vol, lumen)
     gen = torch.Generator(device="cuda").manual_seed(6)
     fixed = [torch.rand((BATCH, 24), generator=gen, device="cuda"),
              torch.rand((BATCH, 12), generator=gen, device="cuda")]
@@ -2017,6 +2072,422 @@ def tree_parsing_phase(lumen: torch.Tensor) -> None:
     emit({"tree_parsing": line})
 
 
+def leaf_ratios(got: list, ref: list) -> list:
+    """|got - ref| / |ref| of each gradient leaf whose norm is above 1e-6 of
+    the largest (a conv bias in front of an InstanceNorm has a gradient
+    of rounding alone)."""
+    floor = 1e-6 * max(float(r.norm()) for r in ref)
+    return [float((a - r).norm() / r.norm()) for a, r in zip(got, ref) if float(r.norm()) > floor]
+
+
+def worst_leaf(got: list, ref: list) -> dict:
+    """The leaf of `leaf_ratios`' largest ratio: its index, shape and norm
+    against the largest leaf's."""
+    big = max(float(r.norm()) for r in ref)
+    i = max((i for i, r in enumerate(ref) if float(r.norm()) > 1e-6 * big),
+            key=lambda i: float((got[i] - ref[i]).norm() / ref[i].norm()))
+    return {"leaf": i, "shape": list(ref[i].shape), "norm_share": float(ref[i].norm()) / big,
+            "ratio": float((got[i] - ref[i]).norm() / ref[i].norm())}
+
+
+def f32_row_block_grads(batch: dict, draws: list, n: int) -> list:
+    """One process's gradient of the f32 check's stage-1 loss formed as n
+    ranks form it: the loss sums of n row blocks of the batch, each block
+    a forward of its own with its rows of the draws, added, then the loss,
+    in one autograd graph; from the weights of seed 3."""
+    cfg = SEUNetConfig()
+    tree = SEUNet(cfg, generator=torch.Generator().manual_seed(3)).cuda().params_tree()
+    params = _tree_map(lambda t: t.detach().clone().requires_grad_(True), tree)
+    k = batch["image"].shape[0] // n
+    sums = 0
+    for r in range(n):
+        rows = slice(r * k, (r + 1) * k)
+        local = {key: torch.from_numpy(v[rows]).cuda() for key, v in batch.items()}
+        p_en, p_de = pstep._heads(se_unet_apply_fast, cfg, params, local["image"],
+                                  drop_draws=draws, drop_rows=rows)
+        sums = sums + torch.cat([torch.stack(x) for x in pstep._stage_sums(1, p_en, p_de,
+                                                                           local)])
+    loss, _ = pstep._stage_losses(1, [p.unbind() for p in torch.split(sums, pstep._N_SUMS[1])])
+    loss.backward()
+    return [torch.zeros(t.shape) if t.grad is None else t.grad.float().cpu()
+            for t in _leaves(params)]
+
+
+def grads_of(state) -> list:
+    return [torch.zeros(t.shape) if t.grad is None else t.grad.float().cpu()
+            for t in _leaves(state.params)]
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def nccl_one_rank(vol: np.ndarray, lumen: torch.Tensor, bare_step_s: float) -> dict:
+    """One rank on NCCL (`env://` on 127.0.0.1): the sharded stage-1 step
+    at 128^3, batch 8, bf16, against the unsharded step on the same batch
+    and DropLayer draws, each from the weights of seed 0 and a fresh AdamW
+    state, with cuDNN's deterministic algorithms; the unsharded step runs
+    twice, for the card's run-to-run spread. The loss within rtol 1e-6,
+    each gradient leaf within 1e-6 of its norm beyond that spread, the
+    launches 10/5/5/2 each. Then, with cuDNN's defaults, the sharded step's
+    seconds: the median of DP_STEPS steps after a warm-up, against
+    train_path's bare step."""
+    cfg = SEUNetConfig(compute_dtype=torch.bfloat16)
+    batch = phantom_batch(vol, lumen)
+    draws = draw_dropout(BATCH, cfg, torch.Generator(device="cuda").manual_seed(6))
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()), "RANK": "0",
+           "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    out, step_s = {}, []
+    with mock.patch.dict(os.environ, env):
+        mesh = make_mesh(backend="nccl")
+        try:
+            with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                            allow_tf32=False):
+                for name, m in (("unsharded", None), ("sharded", mesh),
+                                ("unsharded_again", None)):
+                    tree = SEUNet(cfg, generator=torch.Generator().manual_seed(0)).cuda() \
+                        .params_tree()
+                    state = create_train_state(tree, make_optimizer()[0])
+                    del tree
+                    reset_launch_counts()
+                    t0 = time.perf_counter()
+                    state, aux = make_train_step(cfg, stage=1, mesh=m)(state, batch,
+                                                                       drop_draws=draws)
+                    out[name] = {"loss": float(aux["loss"]), "grads": grads_of(state),
+                                 "launches": dict(launch_counts), "s": time.perf_counter() - t0}
+                    del state, aux
+                    torch.cuda.empty_cache()
+            tree = SEUNet(cfg, generator=torch.Generator().manual_seed(0)).cuda().params_tree()
+            state = create_train_state(tree, make_optimizer()[0])
+            del tree
+            step = make_train_step(cfg, stage=1, mesh=mesh)
+            gen = torch.Generator(device="cuda").manual_seed(6)
+            for _ in range(DP_STEPS + 1):
+                t0 = time.perf_counter()
+                state, aux = step(state, batch, gen)
+                float(aux["loss"])
+                step_s.append(time.perf_counter() - t0)
+            del state, step, aux
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    ref, got = out["unsharded"], out["sharded"]
+    spread = max(leaf_ratios(out["unsharded_again"]["grads"], ref["grads"]))
+    ratio = max(leaf_ratios(got["grads"], ref["grads"]))
+    res = {"backend": mesh.backend, "ranks": mesh.size, "crop": 128, "batch": BATCH,
+           "dtype": "bfloat16", "stage": 1, "loss_sharded": got["loss"],
+           "loss_unsharded": ref["loss"], "loss_unsharded_again": out["unsharded_again"]["loss"],
+           "grad_leaf_norm_ratio_max": ratio, "unsharded_repeat_grad_leaf_norm_ratio_max": spread,
+           "launches_sharded": got["launches"],
+           "step_s_first": {k: v["s"] for k, v in out.items()}, "step_s_runs": step_s[1:],
+           "step_s": statistics.median(step_s[1:]), "bare_step_s": bare_step_s,
+           "step_over_bare_step": statistics.median(step_s[1:]) / bare_step_s}
+    for k, v in out.items():
+        expect_launches(f"the one-rank NCCL check's {k} step", v["launches"], STEP_LAUNCHES)
+    if not abs(got["loss"] - ref["loss"]) <= 1e-6 * abs(ref["loss"]):
+        raise AssertionError(f"one-rank NCCL step loss {got['loss']} against {ref['loss']}")
+    if not ratio <= 1e-6 + spread:
+        raise AssertionError(f"one-rank NCCL step gradients: leaf norm ratio {ratio}, the "
+                             f"card's repeat {spread}")
+    return res
+
+
+def _dp_rank(mesh, vol: np.ndarray, lumen: np.ndarray, f32_batch: dict, f32_draws: list,
+             cases: tuple) -> dict:
+    """The two-rank parts of `data_parallel_path` on one rank (gloo, both
+    ranks on the one card): (a) three f32 stage-1 steps of 32^3 crops,
+    global batch 4, then 1 (replicated), then 4; (b) the stage-1 step at
+    128^3, global batch 8 (4 a rank), bf16: a warm-up, DP_STEPS timed
+    steps, then DP_ALLREDUCE_STEPS steps that time the gradient
+    all_reduce between two synchronizes; (c) the sharded runner (batch 8,
+    4 tiles a rank, bf16, the main path's weights) on the phantom: a
+    warm-up volume and DP_VOLUMES timed ones; (d) train_stage2 for one
+    epoch on the two 160^3 cuts (batch 8, cube 128, bf16). Launches are
+    counted from 0 before each part."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    out = {}
+
+    # (a) f32 32^3, cuDNN's deterministic algorithms
+    cfg = SEUNetConfig()
+    tree = SEUNet(cfg, generator=torch.Generator().manual_seed(3)).to(dev).params_tree()
+    state = create_train_state(tree, make_optimizer()[0])
+    step = make_train_step(cfg, stage=1, mesh=mesh)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        for i, rows in enumerate((slice(0, 4), slice(0, 1), slice(0, 4))):
+            state, aux = step(state, {k: v[rows] for k, v in f32_batch.items()},
+                              drop_draws=[d[rows] for d in f32_draws])
+            if i == 0:
+                out["f32_loss"], out["f32_grads"] = float(aux["loss"]), grads_of(state)
+    out["f32_params"] = [t.detach().cpu() for t in _leaves(state.params)]
+    out["f32_moments"] = [{k: v.cpu() for k, v in state.optimizer.state[t].items()}
+                          for t in _leaves(state.params) if t in state.optimizer.state]
+    del state, step, tree
+
+    # (b) full width
+    cfg = SEUNetConfig(compute_dtype=torch.bfloat16)
+    tree = SEUNet(cfg, generator=torch.Generator().manual_seed(0)).to(dev).params_tree()
+    state = create_train_state(tree, make_optimizer()[0])
+    del tree
+    step = make_train_step(cfg, stage=1, mesh=mesh)
+    batch = phantom_batch(vol, torch.from_numpy(lumen).to(dev))
+    gen = torch.Generator(device=dev).manual_seed(6)
+    state, aux = step(state, batch, gen)
+    losses = [float(aux["loss"])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mesh.barrier()
+    reset_launch_counts()
+    step_s = []
+    for _ in range(DP_STEPS):
+        t0 = time.perf_counter()
+        state, aux = step(state, batch, gen)
+        losses.append(float(aux["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    launches = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    allreduce_s, real = [], dist.all_reduce
+
+    def timed(t, *a, **kw):
+        if t.numel() < 1_000_000:  # the loss sums, not the gradient bucket
+            return real(t, *a, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real(t, *a, **kw)
+        torch.cuda.synchronize()
+        allreduce_s.append((time.perf_counter() - t0, t.numel()))
+        return res
+
+    with mock.patch.object(dist, "all_reduce", timed):
+        for _ in range(DP_ALLREDUCE_STEPS):
+            state, aux = step(state, batch, gen)
+            losses.append(float(aux["loss"]))
+    out["full"] = {"step_s_runs": step_s, "step_s": statistics.median(step_s),
+                   "allreduce_s_runs": [a for a, _ in allreduce_s],
+                   "allreduce_s": statistics.median(a for a, _ in allreduce_s),
+                   "bucket_floats": allreduce_s[0][1], "peak_mem_gb": peak,
+                   "launches": launches, "losses": losses}
+    del state, step, batch, aux
+    torch.cuda.empty_cache()
+
+    # (c) the sharded runner
+    cfg, model = get_model(seed=0, compute_dtype=torch.bfloat16, device=dev)
+    runner = SlidingWindowRunner(model, cfg, cube=128, step=64, batch=BATCH, mesh=mesh)
+    kw = dict(h_thresh=0.5, l_thresh=0.35, hu_shift=-1024.0)
+    runner.predict_trits(vol, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    vol_s = []
+    for _ in range(DP_VOLUMES):
+        mesh.barrier()
+        t0 = time.perf_counter()
+        trits = runner.predict_trits(vol, **kw)
+        torch.cuda.synchronize()
+        vol_s.append(time.perf_counter() - t0)
+    out["runner"] = {"s_per_volume_runs": vol_s, "s_per_volume": statistics.median(vol_s),
+                     "launches": dict(launch_counts),
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "trits": trits,
+                     "scores": runner.predict_hu(vol, hu_shift=-1024.0)}
+    if not mesh.is_main:
+        del out["runner"]["scores"]
+    del runner, model
+    torch.cuda.empty_cache()
+
+    # (d) one train_stage2 epoch
+    data_root, file_root, tmp = cases
+    probe = DriverProbe()
+    writes = {"params": 0, "resume_point": 0, "cache": 0}
+
+    def counting(name, fn):
+        def call(*a, **k):
+            writes[name] += 1
+            return fn(*a, **k)
+        return call
+
+    c = dp_stage2_cfg(data_root, file_root, tmp, mesh)
+    reset_launch_counts()
+    with probe.clock.stack, mock.patch.multiple(
+            stages, save_params=counting("params", stages.save_params),
+            _save_resume_point=counting("resume_point", stages._save_resume_point)), \
+            mock.patch.object(stages.OnlineCache, "add_batch",
+                              counting("cache", stages.OnlineCache.add_batch)):
+        t0 = time.perf_counter()
+        state = stages.train_stage2(c)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    out["drivers"] = {"wall_s": wall_s, "seconds": dict(probe.clock.s), "steps": probe.steps,
+                      "main_step_s": probe.main_s, "losses": [float(v) for v in probe.losses],
+                      "val_launches": probe.val_launches, "writes": writes,
+                      "final_step": state.step, "launches": dict(launch_counts),
+                      "params": [t.detach().cpu() for t in _leaves(state.params)]}
+    return out
+
+
+def dp_stage2_cfg(data_root: str, file_root: str, tmp: str, mesh=None):
+    """The data-parallel phase's train_stage2 run: 1 epoch, bf16, cube 128,
+    batch 8, from the weights of seed 0."""
+    _, model = get_model(seed=0, compute_dtype=torch.bfloat16,
+                         device=None if mesh is None else mesh.device)
+    return stages.StageConfig(
+        data_root=data_root, file_root=file_root,
+        file_path=os.path.join(file_root, "base_dict.json"),
+        model_savepath=os.path.join(tmp, "dp", "model"),
+        log_savepath=os.path.join(tmp, "dp", "LOG.txt"), epochs=1, batch_size=BATCH,
+        cube=DRIVER_CUBE, milestones=(40, 60), start_params=model.params_tree(),
+        pred_path=os.path.join(file_root, "pred_1"),
+        online_savepath=os.path.join(tmp, "dp", "online"),
+        model_cfg=SEUNetConfig(compute_dtype=torch.bfloat16), mesh=mesh)
+
+
+def data_parallel_path_phase(vol: np.ndarray, lumen: torch.Tensor, branch: np.ndarray,
+                             trits: np.ndarray, bare_step_s: float) -> None:
+    """The `data` axis of the mesh (`parallel/mesh.py`) on the one card.
+    NCCL does not take two ranks on one card, so: one rank on NCCL (the
+    production backend; `nccl_one_rank`), then two ranks sharing the card
+    over gloo (`_dp_rank`), whose times are not a scaling figure. Against
+    one process on the card: the f32 step's loss and gradients (each leaf
+    within DP_F32_LEAF_RTOL of its norm from `f32_row_block_grads`, within
+    DP_F32_BATCH_LEAF_RTOL from the B=4 step; cuDNN deterministic on both
+    sides, the B=4 step run twice for its spread), the runner's
+    scores (within DP_SCORE_ATOL) and trits (at most DP_TRIT_FRACTION of
+    them different from main_path's).
+    Across the ranks: the f32 parameters and AdamW moments bitwise equal
+    after the 3 steps, the runner's trits equal, the drivers' losses and
+    parameters equal; every rank's launches 10/5/5/2 a step and 10/5 a tile
+    batch; the drivers' files written by rank 0 alone."""
+    t_phase = time.perf_counter()
+    line = {"ranks_share_one_card": "two ranks on one card: not a scaling figure",
+            "nccl_one_rank": nccl_one_rank(vol, lumen, bare_step_s)}
+    b, s = DP_F32
+    r = np.random.default_rng(4)
+    f32_batch = {"image": r.random((b, s, s, s, 2), np.float32),
+                 "label": (r.random((b, s, s, s)) > 0.7).astype(np.float32)}
+    f32_draws = draw_dropout(b, SEUNetConfig(), torch.Generator().manual_seed(4))
+    f32_ref = []  # the one-process step twice: the card's run-to-run spread
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        for _ in range(2):
+            tree = SEUNet(SEUNetConfig(), generator=torch.Generator().manual_seed(3)).cuda() \
+                .params_tree()
+            state = create_train_state(tree, make_optimizer()[0])
+            state, aux = make_train_step(SEUNetConfig(), stage=1)(
+                state, {k: torch.from_numpy(v).cuda() for k, v in f32_batch.items()},
+                drop_draws=f32_draws)
+            f32_ref.append((float(aux["loss"]), grads_of(state)))
+            del tree, state, aux
+        f32_blocks = f32_row_block_grads(f32_batch, f32_draws, DP_RANKS)
+    (f32_loss, f32_grads), f32_again = f32_ref
+    cfg, model = get_model(seed=0, compute_dtype=torch.bfloat16)
+    scores = SlidingWindowRunner(model, cfg, cube=128, step=64, batch=BATCH).predict_hu(
+        vol, hu_shift=-1024.0)
+    del model
+    with tempfile.TemporaryDirectory() as tmp:
+        data_root, file_root = write_cases(vol, lumen, branch, tmp)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn(_dp_rank, DP_RANKS, vol, lumen.cpu().numpy(), f32_batch, f32_draws,
+                      (data_root, file_root, tmp), devices=["cuda:0"] * DP_RANKS, threads=2,
+                      timeout_s=900)
+        spawn_s = time.perf_counter() - t0
+        check_stage_files(dp_stage2_cfg(data_root, file_root, tmp), 2, range(0, 1),
+                          ranks[0]["drivers"]["steps"]["main"])
+    n_batches = 48 // BATCH
+    r0 = ranks[0]
+    ratios = leaf_ratios(r0["f32_grads"], f32_grads)
+    block_ratios = leaf_ratios(r0["f32_grads"], f32_blocks)
+    repeat = max(leaf_ratios(f32_again[1], f32_grads))
+    diff = np.abs(r0["runner"]["scores"] - scores)
+    n_trits = int((r0["runner"]["trits"] != trits).sum())
+    line.update({
+        "backend": "gloo", "ranks": DP_RANKS, "spawn_wall_s": spawn_s,
+        "f32_step": {"crop": s, "global_batch": b, "loss_ranks": r0["f32_loss"],
+                     "loss_one_process": f32_loss, "grad_leaf_norm_ratio_max": max(ratios),
+                     "grad_worst_leaf": worst_leaf(r0["f32_grads"], f32_grads),
+                     "one_process_repeat_grad_leaf_norm_ratio_max": repeat,
+                     "row_blocks_grad_leaf_norm_ratio_max": max(block_ratios),
+                     "row_blocks_grad_worst_leaf": worst_leaf(r0["f32_grads"], f32_blocks),
+                     "row_blocks_one_process_grad_leaf_norm_ratio_max":
+                         max(leaf_ratios(f32_blocks, f32_grads)),
+                     "loss_rtol_bound": DP_F32_LOSS_RTOL,
+                     "grad_leaf_norm_ratio_bound": DP_F32_BATCH_LEAF_RTOL,
+                     "row_blocks_grad_leaf_norm_ratio_bound": DP_F32_LEAF_RTOL,
+                     "cudnn": "deterministic", "steps": "4, 1 (replicated), 4"},
+        "train_step": {"crop": 128, "global_batch": BATCH, "batch_per_rank": BATCH // DP_RANKS,
+                       "dtype": "bfloat16", "stage": 1, "bare_step_s_one_process": bare_step_s,
+                       "gradient_bucket_mb": 4 * r0["full"]["bucket_floats"] / 1e6,
+                       **{f"rank{i}": {k: v for k, v in r["full"].items() if k != "bucket_floats"}
+                          for i, r in enumerate(ranks)}},
+        "runner": {"shape": list(SHAPE), "cube": 128, "step": 64, "batch": BATCH,
+                   "tiles_per_rank": BATCH // DP_RANKS, "dtype": "bfloat16",
+                   "gather_mb_per_tile_batch": BATCH * 128 ** 3 * 4 / 1e6,
+                   "tile_batches": n_batches,
+                   "score_max_abs_diff_one_process": float(diff.max()),
+                   "score_max_abs_diff_bound": DP_SCORE_ATOL,
+                   "trit_voxels_differing_main_path": n_trits,
+                   "trit_voxels_differing_bound": int(DP_TRIT_FRACTION * trits.size),
+                   **{f"rank{i}": {k: v for k, v in r["runner"].items()
+                                   if k not in ("trits", "scores")}
+                      for i, r in enumerate(ranks)}},
+        "drivers": {"stage": 2, "epochs": 1, "cases": list(ENGINE_CASES), "cut": ENGINE_CUT,
+                    **{f"rank{i}": {k: v for k, v in r["drivers"].items() if k != "params"}
+                       for i, r in enumerate(ranks)}},
+        "phase_wall_s": time.perf_counter() - t_phase})
+    emit({"data_parallel_path": line})
+
+    if not abs(r0["f32_loss"] - f32_loss) <= DP_F32_LOSS_RTOL * abs(f32_loss) or \
+            not max(block_ratios) <= DP_F32_LEAF_RTOL or \
+            not max(ratios) <= DP_F32_BATCH_LEAF_RTOL:
+        raise AssertionError(f"two-rank f32 step: loss {r0['f32_loss']} against {f32_loss}, "
+                             f"leaf norm ratio {max(block_ratios)} against the row blocks, "
+                             f"{max(ratios)} against the B={b} step")
+    for name, kind in (("f32_params", None), ("f32_moments", dict)):
+        for a, b_ in zip(r0[name], ranks[1][name]):
+            same = (a.keys() == b_.keys() and all(torch.equal(a[k], b_[k]) for k in a)
+                    if kind is dict else torch.equal(a, b_))
+            if not same:
+                raise AssertionError(f"the ranks' {name} differ after the replicated step")
+    for i, r in enumerate(ranks):
+        expect_launches(f"rank {i}'s train steps", r["full"]["launches"],
+                        {k: v * DP_STEPS for k, v in STEP_LAUNCHES.items()})
+        expect_launches(f"rank {i}'s runner", r["runner"]["launches"],
+                        counts(gathered_epilogue=10 * n_batches * DP_VOLUMES,
+                               phased_epilogue=5 * n_batches * DP_VOLUMES))
+        if not all(math.isfinite(v) for v in r["full"]["losses"] + r["drivers"]["losses"]):
+            raise AssertionError(f"rank {i}: non-finite losses")
+        want_steps = {"main": len(ENGINE_CASES), "replay": int(len(ENGINE_CASES) * BATCH * 0.3)}
+        if r["drivers"]["steps"] != want_steps:
+            raise AssertionError(f"rank {i}: driver steps {r['drivers']['steps']}")
+    if not np.array_equal(r0["runner"]["trits"], ranks[1]["runner"]["trits"]):
+        raise AssertionError("the ranks' trit fields differ")
+    if not diff.max() <= DP_SCORE_ATOL:
+        raise AssertionError(f"sharded runner scores differ by {diff.max()} from one process")
+    if not n_trits <= DP_TRIT_FRACTION * trits.size:
+        raise AssertionError(f"the sharded runner's trits differ from main_path's at {n_trits} "
+                             f"voxels")
+    if r0["drivers"]["losses"] != ranks[1]["drivers"]["losses"] or not all(
+            torch.equal(a, b_) for a, b_ in zip(r0["drivers"]["params"],
+                                                 ranks[1]["drivers"]["params"])):
+        raise AssertionError("the ranks' driver losses or parameters differ")
+    want_val = counts(gathered_epilogue=10 * tile_batches((ENGINE_CUT,) * 3, DRIVER_CUBE,
+                                                          DRIVER_CUBE // 2),
+                      phased_epilogue=5 * tile_batches((ENGINE_CUT,) * 3, DRIVER_CUBE,
+                                                       DRIVER_CUBE // 2))
+    if r0["drivers"]["val_launches"] != [want_val]:
+        raise AssertionError(f"rank 0's validation launched {r0['drivers']['val_launches']}")
+    if r0["drivers"]["writes"] != {"params": 1, "resume_point": 1,
+                                   "cache": len(ENGINE_CASES)} or any(
+            ranks[1]["drivers"]["writes"].values()):
+        raise AssertionError(f"driver writes: rank 0 {r0['drivers']['writes']}, rank 1 "
+                             f"{ranks[1]['drivers']['writes']}")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2080,6 +2551,7 @@ def main() -> int:
     drivers_path_phase(vol, lumen, branch, bare_step_s)
     curriculum_path_phase(vol, lumen, branch, bare_step_s)
     tree_parsing_phase(lumen)
+    data_parallel_path_phase(vol, lumen, branch, trits, bare_step_s)
     # each kernel's launches from the path that runs it
     launches = {**{k: main_launches[k] for k in EPILOGUE_TABLES},
                 **{k: train_launches[k] for k in ("phased_normalize", "max_pool_s2d_bwd")},

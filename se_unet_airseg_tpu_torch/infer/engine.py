@@ -26,6 +26,12 @@ DropLayer draws in train mode: `generator` (a `torch.Generator` on the
 runner's device) is drawn from case after case, tile batch after tile
 batch; `drop_draws`, when given, holds one sequence per case, each with
 one `[r_en, r_de]` per tile batch.
+
+`validate(mesh=...)` splits the cases over the ranks of a
+`parallel.DataMesh` (`DataMesh.cases`). A rank advances the generator
+past the other ranks' cases (`SlidingWindowRunner.skip_draws`), so each
+case sees the draws of one process; the per-case metrics are summed over
+the ranks, rank 0 writes the LOG, and every rank returns the same means.
 """
 
 from __future__ import annotations
@@ -35,13 +41,14 @@ import os
 import numpy as np
 import torch
 
-from ..io import read_nifti, write_nifti
+from ..io import nifti_shape, read_nifti, write_nifti
 from ..metrics import evaluation_suite
 from ..models.se_unet import SEUNetConfig
 from ..pipeline.preprocess import largest_cc_midslice_fallback as maximum_3d
 from ..pipeline.preprocess import preprocess_ct_volume
 from ..post import dti as dti_fn, largest_component
-from ..train.logbook import append_epoch
+from ..parallel.mesh import sum_over_ranks
+from ..train.logbook import _KEYS, append_epoch
 from .sliding_window import SlidingWindowRunner, fetch_trits, trits_to_scores
 
 
@@ -117,12 +124,15 @@ def validate(
     *,
     drop_draws=None,
     device=None,
+    mesh=None,
 ):
     """Returns (TD_mean, BD_mean, val_loss_random, val_loss_hard) —
     the curriculum scheduler's inputs (reference train.py:631-738).
 
     Pass a `runner` (reused across epochs via `set_params`) to keep its
-    fast-path weights and count volumes between epochs.
+    fast-path weights and count volumes between epochs. With a `mesh`
+    every rank calls this with its own runner and takes its share of the
+    cases (module docstring).
     """
     if runner is None:
         runner = SlidingWindowRunner(params, cfg, train_mode=True, cube=cube, step=step,
@@ -135,9 +145,10 @@ def validate(
         # from the epoch so best-epoch selection ranks under independent,
         # not correlated, dropout realizations
         generator = torch.Generator(device=runner.device).manual_seed(epoch)
-    metrics, rand_dice, hard_dice = [], [], []
+    # a row a case: the metric block, then the random and hard val Dice
+    rows = np.zeros((len(names), len(_KEYS) + 2))
 
-    def finish(name, label, handle):
+    def finish(i, name, label, handle):
         pred = _finish_binarize(handle)
         if stage != 1:
             p1 = read_nifti(os.path.join(file_root, "pred_1", name + ".nii.gz")).array
@@ -145,25 +156,37 @@ def validate(
                 p1 = p1[0]
             inv = 1 - p1
             hp, hl = pred * inv, label * inv
-            rand_dice.append(2 * (pred * label).sum() / max((pred + label).sum(), 1))
-            hard_dice.append(2 * (hp * hl).sum() / max((hp + hl).sum(), 1))
-        metrics.append(evaluation_case(pred, label, name, file_root, "_val"))
+            rows[i, -2:] = (2 * (pred * label).sum() / max((pred + label).sum(), 1),
+                            2 * (hp * hl).sum() / max((hp + hl).sum(), 1))
+        m = evaluation_case(pred, label, name, file_root, "_val")
+        rows[i, :len(_KEYS)] = [m[k] for k in _KEYS]
 
+    mine = range(len(names)) if mesh is None else mesh.cases(len(names))
     # dispatch-ahead depth 1: case i's host post-processing (codec
     # decode, DTI, CC, metric suite) runs while case i+1 computes on
     # the device
     pending = None
     for i, name in enumerate(names):
+        if i not in mine:
+            if drop_draws is None:
+                runner.skip_draws(
+                    nifti_shape(os.path.join(data_root, "data", name + "data_cut.nii.gz")),
+                    generator)
+            continue
         img, label = _load_case(data_root, name)
         handle = _dispatch_binarize(runner, img.array, dti, 0.5, 0.4, generator=generator,
                                     drop_draws=_case_draws(drop_draws, i))
         if pending is not None:
             finish(*pending)
-        pending = (name, label, handle)
+        pending = (i, name, label, handle)
     if pending is not None:
         finish(*pending)
-    line = append_epoch(log_savepath, epoch, metrics)
-    print(line)
+    if mesh is not None:
+        rows = sum_over_ranks(rows, mesh)
+    metrics = [{k: float(v) for k, v in zip(_KEYS, r)} for r in rows]
+    if mesh is None or mesh.is_main:
+        print(append_epoch(log_savepath, epoch, metrics))
+    rand_dice, hard_dice = ([], []) if stage == 1 else (list(rows[:, -2]), list(rows[:, -1]))
     td = float(np.mean([m["TD"] for m in metrics]))
     bd = float(np.mean([m["BD"] for m in metrics]))
     vr = float(np.mean(rand_dice)) if rand_dice else 0.0

@@ -21,6 +21,13 @@ The forward is the s2d fast path (`models.se_unet.apply_fast`), or with
 route. In train mode (`train_mode=True`, as the validation and test
 drivers run it) DropLayer draws its uniforms per tile batch, from a
 `torch.Generator` or from `drop_draws`, one `[r_en, r_de]` per batch.
+
+Under a mesh (`parallel.make_mesh`; JAX `sliding_window.py:165-193,
+277-282`) every rank runs its batch/n tiles of each tile batch on the
+per-tile route, the tiles' scores are gathered in tile order, and every
+rank accumulates all of them in the same order: the volume is returned on
+every rank. In train mode each rank draws the batch's global uniforms and
+uses its rows of them.
 """
 
 from __future__ import annotations
@@ -32,8 +39,15 @@ import torch
 from torch import nn
 
 from ..data.tiling import pad_positions_to_batch, tile_positions
-from ..models.se_unet import SEUNetConfig, apply as se_unet_apply, apply_fast, prepare_fast_params
+from ..models.se_unet import (
+    SEUNetConfig,
+    apply as se_unet_apply,
+    apply_fast,
+    draw_dropout,
+    prepare_fast_params,
+)
 from ..ops import hu_dual_window
+from ..parallel.mesh import all_gather_rows, check_mesh
 from ..utils.devices import resolve_device
 
 
@@ -129,15 +143,19 @@ class SlidingWindowRunner:
     `train_mode`: DropLayer on, as the reference's validation and test run
     the net; the predict methods then need `generator=` or `drop_draws=`.
     `fast=False` runs the reference-layout `apply` on the per-tile route.
-    `mesh` (tile batches split over devices) is not ported yet."""
+    `mesh` (a `parallel.DataMesh`) splits every tile batch over the ranks:
+    `batch` must be a multiple of their number, and the default device is
+    the rank's."""
 
     def __init__(self, params, cfg: SEUNetConfig = SEUNetConfig(), *,
                  cube: int = 128, step: int = 64, batch: int = 1,
                  head: str = "decoder", use_sigmoid: bool = True,
                  train_mode: bool = False, fast: bool = True, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError("a runner over a device mesh is not ported yet")
-        self.device = resolve_device(device)
+        check_mesh(mesh)
+        if mesh is not None and batch % mesh.size:
+            raise ValueError(f"batch {batch} must be a multiple of the mesh's {mesh.size} ranks")
+        self.mesh = mesh
+        self.device = resolve_device(device, mesh)
         self.cfg = cfg
         self.cube = cube
         self.step = step
@@ -164,8 +182,9 @@ class SlidingWindowRunner:
 
     def _s2d_io_ok(self, padded_shape, pos: np.ndarray) -> bool:
         """The s2d-folded route needs the fast path, one class, even
-        extents and even tile positions; values equal either way."""
-        if not self.fast or self.cfg.n_classes != 1 or self.cube % 2:
+        extents and even tile positions, and no mesh; values equal either
+        way."""
+        if not self.fast or self.mesh is not None or self.cfg.n_classes != 1 or self.cube % 2:
             return False
         if any(int(d) % 2 for d in padded_shape):
             return False
@@ -183,10 +202,19 @@ class SlidingWindowRunner:
         return torch.sigmoid(p) if self.use_sigmoid else p
 
     def _step(self, vol, pred, positions, shift: float, draws):
-        """One tile batch on the full-resolution volume."""
+        """One tile batch on the full-resolution volume; under a mesh this
+        rank's tiles of it, the scores of all gathered."""
         c = self.cube
-        raw = torch.stack([vol[x : x + c, y : y + c, z : z + c] for x, y, z in positions])
+        mine = positions
+        if self.mesh is not None:
+            rows = self.mesh.rows(len(positions))
+            mine = positions[rows]
+            if draws:
+                draws = self._rank_draws(draws, len(positions), rows)
+        raw = torch.stack([vol[x : x + c, y : y + c, z : z + c] for x, y, z in mine])
         p = self._forward(hu_dual_window(raw.to(torch.float32) + shift), draws)[..., 0]
+        if self.mesh is not None:
+            p = all_gather_rows(p, self.mesh)
         # tiles within a batch may overlap: sequential add per tile
         for i, (x, y, z) in enumerate(positions):
             pred[x : x + c, y : y + c, z : z + c] += p[i]
@@ -229,6 +257,25 @@ class SlidingWindowRunner:
         # one per-volume unfold back to voxel order
         pred = pred.reshape(d2, h2, w2, 2, 2, 2).permute(0, 3, 1, 4, 2, 5)
         return pred.reshape(d, h, w)
+
+    def _rank_draws(self, draws: dict, b: int, rows: slice) -> dict:
+        """A tile batch's train-mode arguments for this rank: the batch's
+        global draws (from the generator when no `drop_draws`) and its rows."""
+        dr = draws.get("drop_draws")
+        if dr is None:
+            dr = draw_dropout(b, self.cfg, draws["generator"])
+        return dict(train=True, drop_draws=dr, drop_rows=rows)
+
+    def skip_draws(self, shape, generator: torch.Generator) -> None:
+        """Advance `generator` past what a train-mode prediction of a volume
+        of `shape` draws from it (one DropLayer draw a tile batch), so ranks
+        that split the cases of one generator draw what one process does."""
+        if not self.train_mode:
+            return
+        padded = np.maximum(np.asarray(shape), self.cube)
+        pos = pad_positions_to_batch(tile_positions(padded, self.cube, self.step), self.batch)
+        for _ in range(len(pos) // self.batch):
+            draw_dropout(self.batch, self.cfg, generator)
 
     def _inv_count(self, padded_shape: tuple, pos: np.ndarray):
         """Reciprocal overlap-count volume: a function of the tile grid

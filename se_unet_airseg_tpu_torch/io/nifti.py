@@ -113,6 +113,20 @@ def read_nifti(path: str) -> NiftiVolume:
     return NiftiVolume(arr, tuple(map(float, spacing)), tuple(map(float, origin)), direction)
 
 
+def nifti_shape(path: str) -> tuple[int, ...]:
+    """The shape of `read_nifti(path).array`, from the header alone."""
+    with open(path, "rb") as f:
+        head = f.read(2)
+        f.seek(0)
+        raw = gzip.GzipFile(fileobj=f).read(352) if head == b"\x1f\x8b" else f.read(352)
+    en = "<" if struct.unpack_from("<i", raw, 0)[0] == 348 else ">"
+    dim = struct.unpack_from(en + "8h", raw, 40)
+    shape = tuple(max(1, d) for d in dim[1 : 1 + max(dim[0], 3)])[::-1]
+    while len(shape) > 3 and shape[0] == 1:
+        shape = shape[1:]
+    return shape
+
+
 def write_nifti(
     path: str,
     array: np.ndarray,

@@ -12,9 +12,13 @@ Stage mixes (reference train.py:597-599, 432-435, 238-243):
   S3: 1.0 * GUL(de) + 0.5 * GUL(en) + 0.5 * (atr(en) + atr(de))
 
 Every loss flattens the whole batch and sums in float32, whatever the
-activation dtype, as the JAX package's `losses.py` does. Inputs are
-post-sigmoid probabilities. `tversky_loss` / `root_tversky_loss` exist in
-the reference (save_gradients.py:27-49) but no stage uses them.
+activation dtype, as the JAX package's `losses.py` does. Dice, GUL and
+atr are ratios of sums: `*_sums` forms the sums, `*_from_sums` the
+ratio. A loss over several ranks (`train/step.py` under a mesh) adds the
+ranks' sums in between, in one collective with the step's other sums.
+Inputs are post-sigmoid probabilities. `tversky_loss` /
+`root_tversky_loss` exist in the reference (save_gradients.py:27-49) but
+no stage uses them.
 """
 
 import torch
@@ -24,32 +28,57 @@ def _flat(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(-1).to(torch.float32)
 
 
-def dice_loss(pred, target, smooth: float = 1.0):
+def dice_sums(pred, target):
+    """Dice's sums (sum p*t, sum p, sum t): additive over the crops and voxels."""
     p, t = _flat(pred), _flat(target)
-    inter = torch.sum(p * t)
-    return 1.0 - (2.0 * inter + smooth) / (torch.sum(p) + torch.sum(t) + smooth)
+    return torch.sum(p * t), torch.sum(p), torch.sum(t)
+
+
+def dice_from_sums(sums, smooth: float = 1.0):
+    inter, sum_p, sum_t = sums
+    return 1.0 - (2.0 * inter + smooth) / (sum_p + sum_t + smooth)
+
+
+def dice_loss(pred, target, smooth: float = 1.0):
+    return dice_from_sums(dice_sums(pred, target), smooth)
+
+
+def general_union_sums(pred, target, weight, *, alpha: float = 0.2, sigma1: float = 1e-4,
+                       sigma2: float = 1e-4, exponent: float = 0.7):
+    """GUL's sums (intersection, union): additive over the crops and voxels."""
+    p, t, w = _flat(pred), _flat(target), _flat(weight)
+    beta = 1.0 - alpha
+    wi = t * sigma1 + (1.0 - t) * sigma2
+    return torch.sum(w * ((p + wi) ** exponent) * t), torch.sum(w * (alpha * p + beta * t))
+
+
+def union_from_sums(sums, smooth: float = 1.0):
+    """1 - (intersection + smooth) / (union + smooth): GUL and atr."""
+    inter, union = sums
+    return 1.0 - (inter + smooth) / (union + smooth)
 
 
 def general_union_loss(pred, target, weight, *, alpha: float = 0.2,
                        sigma1: float = 1e-4, sigma2: float = 1e-4,
                        exponent: float = 0.7, smooth: float = 1.0):
-    p, t, w = _flat(pred), _flat(target), _flat(weight)
-    beta = 1.0 - alpha
-    wi = t * sigma1 + (1.0 - t) * sigma2
-    inter = torch.sum(w * ((p + wi) ** exponent) * t)
-    union = torch.sum(w * (alpha * p + beta * t))
-    return 1.0 - (inter + smooth) / (union + smooth)
+    return union_from_sums(general_union_sums(pred, target, weight, alpha=alpha,
+                                              sigma1=sigma1, sigma2=sigma2,
+                                              exponent=exponent), smooth)
+
+
+def atr_sums(pred, skel, weight):
+    """atr's sums (intersection, union) on skeleton voxels: additive over
+    the crops and voxels."""
+    p, s, w = _flat(pred), _flat(skel), _flat(weight)
+    ps = p * s
+    return torch.sum(w * ps * s), torch.sum(w * (ps + s))
 
 
 def atr_loss(pred, skel, weight, *, smooth: float = 1.0):
     """Airway-continuity loss on skeleton voxels only (the reference's
     target argument is overwritten by skel, reference train.py:70-76, so
     it is not taken)."""
-    p, s, w = _flat(pred), _flat(skel), _flat(weight)
-    ps = p * s
-    inter = torch.sum(w * ps * s)
-    union = torch.sum(w * (ps + s))
-    return 1.0 - (inter + smooth) / (union + smooth)
+    return union_from_sums(atr_sums(pred, skel, weight), smooth)
 
 
 def tversky_loss(pred, target, *, alpha: float = 0.05, smooth: float = 1.0):

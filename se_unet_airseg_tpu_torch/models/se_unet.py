@@ -39,7 +39,9 @@ dropout, to the concatenated side outputs in front of each head. Its
 uniform draws, (B, 12*side) for the encoder head and (B, 6*side) for the
 decoder head, come from an explicit `torch.Generator`, or are passed in
 as `drop_draws` (the JAX package's keyed draws cannot be reproduced, so
-tests hand both packages the same numbers). Gradients flow through
+tests hand both packages the same numbers). DropLayer's scale sums its
+mask over the whole batch; a rank of a mesh that runs some rows of a
+batch passes the batch's draws and its `drop_rows`. Gradients flow through
 everything, `prepare_fast_params` included: the fast path's fused
 blocks, and the s2d max pool, are `torch.autograd.Function`s with the
 JAX package's hand-written backwards. `cfg.remat` checkpoints each block
@@ -270,6 +272,14 @@ def _remat(f, cfg: SEUNetConfig):
     return wrapped
 
 
+def draw_dropout(b: int, cfg: SEUNetConfig, generator: torch.Generator) -> list:
+    """DropLayer's two uniform draws for a batch of `b`, (b, 12*side) and
+    (b, 6*side), from `generator` on its device."""
+    s = cfg.side_channels
+    return [torch.rand((b, k * s), generator=generator, device=generator.device)
+            for k in (12, 6)]
+
+
 def _drop_draws(x, cfg: SEUNetConfig, generator, drop_draws):
     """The two DropLayer uniform draws (B, 12*side), (B, 6*side) as
     float32 on x's device: `drop_draws` when given, else from
@@ -277,32 +287,33 @@ def _drop_draws(x, cfg: SEUNetConfig, generator, drop_draws):
     if drop_draws is None:
         if generator is None:
             raise ValueError("train=True needs a generator or drop_draws for DropLayer")
-        b, s = x.shape[0], cfg.side_channels
-        drop_draws = [torch.rand((b, k * s), generator=generator, device=generator.device)
-                      for k in (12, 6)]
+        drop_draws = draw_dropout(x.shape[0], cfg, generator)
     return [r.to(device=x.device, dtype=torch.float32) for r in drop_draws]
 
 
-def _drop_scale(r, threshold: float):
+def _drop_scale(r, threshold: float, rows=None):
     """DropLayer's per-(batch, channel) factor from its uniform draws r
     (B, C): mask (r >= threshold) times C / (mask.sum() + 0.01), the sum
-    over the whole mask (reference SE_UNet.py:84-97)."""
+    over the whole mask (reference SE_UNet.py:84-97); only the batch rows
+    `rows` of it when given."""
     mask = (r >= threshold).to(torch.float32)
-    return mask * (r.shape[-1] / (mask.sum() + 0.01))
+    scale = mask * (r.shape[-1] / (mask.sum() + 0.01))
+    return scale if rows is None else scale[rows]
 
 
-def _drop_layer(x, r, threshold: float):
+def _drop_layer(x, r, threshold: float, rows=None):
     """DropLayer (channel dropout) of NDHWC x with the draws r (B, C)."""
-    m = _drop_scale(r, threshold).reshape(x.shape[0], 1, 1, 1, x.shape[-1])
+    m = _drop_scale(r, threshold, rows).reshape(x.shape[0], 1, 1, 1, x.shape[-1])
     return x * m.to(x.dtype)
 
 
 def apply(params: Params, x: torch.Tensor, *, cfg: SEUNetConfig = SEUNetConfig(),
           train: bool = False, generator: torch.Generator | None = None,
-          drop_draws=None):
+          drop_draws=None, drop_rows: slice | None = None):
     """Forward on NDHWC input (B, D, H, W, in_channels) in the reference
     layout. Returns the raw-logit heads (pred_en, pred_de). `train`
-    applies DropLayer with draws from `generator` or `drop_draws`."""
+    applies DropLayer with draws from `generator` or `drop_draws`;
+    `drop_rows`: x's rows within the batch that `drop_draws` covers."""
     p = cast_params(params, cfg.compute_dtype)
     x = x.to(cfg.compute_dtype)
     _sse_block = _remat(globals()["_sse_block"], cfg)
@@ -355,8 +366,8 @@ def apply(params: Params, x: torch.Tensor, *, cfg: SEUNetConfig = SEUNetConfig()
     sides_de = cat(s12, s13, s14, s15, s16, s17)
     if train:
         r_en, r_de = _drop_draws(x, cfg, generator, drop_draws)
-        sides_en = _drop_layer(sides_en, r_en, cfg.drop_threshold)
-        sides_de = _drop_layer(sides_de, r_de, cfg.drop_threshold)
+        sides_en = _drop_layer(sides_en, r_en, cfg.drop_threshold, drop_rows)
+        sides_de = _drop_layer(sides_de, r_de, cfg.drop_threshold, drop_rows)
     pred_en = conv3d(sides_en, p["head_en"]["w"], p["head_en"]["b"])
     pred_de = conv3d(sides_de, p["head_de"]["w"], p["head_de"]["b"])
     return pred_en, pred_de
@@ -555,8 +566,8 @@ def _composed_head(metas, head_p: Params, interp=None, s2d_out: bool = False,
 def apply_fast(params: Params, x: torch.Tensor, *,
                cfg: SEUNetConfig = SEUNetConfig(), train: bool = False,
                generator: torch.Generator | None = None, drop_draws=None,
-               fast_params: Params | None = None, x_is_s2d: bool = False,
-               heads_s2d: bool = False):
+               drop_rows: slice | None = None, fast_params: Params | None = None,
+               x_is_s2d: bool = False, heads_s2d: bool = False):
     """Fast forward; same contract as `apply` (D, H, W divisible by 8).
 
     `x_is_s2d`: the input is already the s2d entry tensor
@@ -564,7 +575,8 @@ def apply_fast(params: Params, x: torch.Tensor, *,
     both heads in s2d layout (B, D/2, H/2, W/2, 8*n_classes). Neither
     changes values. `fast_params`: `prepare_fast_params(params, cfg)`,
     computed here when None (in the autograd graph, as training needs).
-    `train`: DropLayer with draws from `generator` or `drop_draws`."""
+    `train`: DropLayer with draws from `generator` or `drop_draws`;
+    `drop_rows`: x's rows within the batch that `drop_draws` covers."""
     _sse_block_s2d = _remat(globals()["_sse_block_s2d"], cfg)
     modes = dict(conv_stats=cfg.conv_stats, conv_epi=cfg.conv_epi)
     # the default phased block, and both blocks under conv_epi, are
@@ -663,8 +675,8 @@ def apply_fast(params: Params, x: torch.Tensor, *,
     drop_en = drop_de = None
     if train:
         r_en, r_de = _drop_draws(x, cfg, generator, drop_draws)
-        drop_en = _drop_scale(r_en, cfg.drop_threshold)
-        drop_de = _drop_scale(r_de, cfg.drop_threshold)
+        drop_en = _drop_scale(r_en, cfg.drop_threshold, drop_rows)
+        drop_de = _drop_scale(r_de, cfg.drop_threshold, drop_rows)
     pred_en = _composed_head(metas_en, p["head_en"], interp=interp, s2d_out=heads_s2d,
                              drop=drop_en)
     pred_de = _composed_head(metas_de, p["head_de"], interp=interp, s2d_out=heads_s2d,

@@ -1,0 +1,30 @@
+"""Data parallelism of the port: one process per device over
+torch.distributed (`mesh.py`)."""
+
+from .mesh import (
+    AXES,
+    DataMesh,
+    MeshAxes,
+    all_gather_rows,
+    all_sum,
+    batch_sharding,
+    broadcast_tree,
+    make_mesh,
+    replicated,
+    spawn,
+    sum_over_ranks,
+)
+
+__all__ = [
+    "AXES",
+    "DataMesh",
+    "MeshAxes",
+    "all_gather_rows",
+    "all_sum",
+    "batch_sharding",
+    "broadcast_tree",
+    "make_mesh",
+    "replicated",
+    "spawn",
+    "sum_over_ranks",
+]

@@ -14,6 +14,13 @@ volumes.
 Counterpart of the JAX package's `pipeline/orchestrate.py`: the same
 hand-offs, through the port's parameter files (`SE_UNet_<ep>.pt`), on
 `PipelineConfig.device` (default None: `cuda`, raising without CUDA).
+
+On a mesh (`PipelineConfig.mesh`, a `parallel.DataMesh`) every rank runs
+this function: the stage drivers train over the ranks, and the priors
+(`save_stage_pred`, `save_weight_break`) and the DTI re-validations split
+the cases over the ranks, with a barrier before any rank reads what
+another wrote. No rank waits in a collective while another works
+through a whole split (`parallel/mesh.py`).
 """
 
 from __future__ import annotations
@@ -45,13 +52,18 @@ class PipelineConfig:
     model_cfg: SEUNetConfig = dataclasses.field(
         default_factory=lambda: SEUNetConfig(remat=True)
     )
-    mesh: object = None  # not ported yet: the stage drivers raise
-    device: Any = None  # None -> cuda (raises without CUDA); "cpu" for tests
+    mesh: object = None  # a parallel.DataMesh: the stages train over its ranks
+    device: Any = None  # None -> cuda, the rank's under a mesh (raises without CUDA)
 
 
 def run_full_curriculum(cfg: PipelineConfig):
     fp = os.path.join(cfg.file_root, "base_dict.json")
-    os.makedirs(cfg.log_dir, exist_ok=True)
+    if cfg.mesh is None or cfg.mesh.is_main:
+        os.makedirs(cfg.log_dir, exist_ok=True)
+
+    def barrier():
+        if cfg.mesh is not None:
+            cfg.mesh.barrier()
 
     def stage_cfg(stage: int, **kw) -> StageConfig:
         names = {1: "stage_one", 2: "stage_two", 3: "stage_three"}
@@ -78,7 +90,8 @@ def run_full_curriculum(cfg: PipelineConfig):
     # ---- pred_1 over train+val (reference train.py:876) ----
     pred1_dir = os.path.join(cfg.file_root, "pred_1")
     save_stage_pred(state1.params, cfg.model_cfg, fp, cfg.data_root, pred1_dir,
-                    cube=cfg.cube, step=cfg.cube // 2, device=cfg.device)
+                    cube=cfg.cube, step=cfg.cube // 2, device=cfg.device, mesh=cfg.mesh)
+    barrier()
 
     # ---- stage 2 ----
     s2 = stage_cfg(
@@ -92,15 +105,17 @@ def run_full_curriculum(cfg: PipelineConfig):
 
     # ---- best stage-2 epoch by recall score (reference train.py:891) ----
     ep2 = best_epoch_recall(s2.log_savepath)
-    params2 = load_params(os.path.join(s2.model_savepath, f"SE_UNet_{ep2}.pt"))
 
     # ---- pred_2 + break priors (reference train.py:894-898) ----
     pred2_dir = os.path.join(cfg.file_root, "pred_2")
-    save_stage_pred(params2, cfg.model_cfg, fp, cfg.data_root, pred2_dir,
-                    cube=cfg.cube, step=cfg.cube // 2, device=cfg.device)
     br_weight_dir = os.path.join(cfg.file_root, "BR_weight")
     br_skel_dir = os.path.join(cfg.file_root, "br_skel")
-    save_weight_break(cfg.data_root, pred2_dir, br_weight_dir, br_skel_dir, fp)
+    params2 = load_params(os.path.join(s2.model_savepath, f"SE_UNet_{ep2}.pt"))
+    save_stage_pred(params2, cfg.model_cfg, fp, cfg.data_root, pred2_dir,
+                    cube=cfg.cube, step=cfg.cube // 2, device=cfg.device, mesh=cfg.mesh)
+    # the same split of the same cases: a rank reads the pred_2 it wrote
+    save_weight_break(cfg.data_root, pred2_dir, br_weight_dir, br_skel_dir, fp, mesh=cfg.mesh)
+    barrier()
 
     # ---- stage 3 ----
     s3 = stage_cfg(
@@ -124,6 +139,7 @@ def run_full_curriculum(cfg: PipelineConfig):
         validate(
             params, cfg.model_cfg, names, cfg.data_root, cfg.file_root,
             ep, scfg.log_savepath + ".dti", dti=True, stage=stage,
-            cube=cfg.cube, step=cfg.cube // 2, device=cfg.device,
+            cube=cfg.cube, step=cfg.cube // 2, device=cfg.device, mesh=cfg.mesh,
         )
+    barrier()
     return s3

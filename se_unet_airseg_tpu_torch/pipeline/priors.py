@@ -100,21 +100,25 @@ def save_stage_pred(
     *,
     device=None,
     drop_draws=None,
+    mesh=None,
 ):
     """Full-volume binarized predictions over train+val for the next
     stage's hard-mining (raw-logit > 0.5, train-mode net — reference
     save_gradients.py:130-137 / weight_br.py:94-102). `drop_draws`, when
     given, holds one sequence of per-tile-batch draws per case (in the
-    sorted order of the names)."""
+    sorted order of the names). With a `mesh` (a `parallel.DataMesh`)
+    each rank predicts and writes its share of the cases
+    (`DataMesh.cases`), each case on the draws of one process."""
     from ..infer.sliding_window import SlidingWindowRunner
 
-    dev = resolve_device(device)
+    dev = resolve_device(device, mesh)
     os.makedirs(save_dir, exist_ok=True)
     runner = SlidingWindowRunner(
         params, cfg, use_sigmoid=False, train_mode=True, cube=cube, step=step, device=dev
     )
-    names = load_json_file(file_path, "0", ("train", "val"))
-    for i, name in enumerate(sorted(names)):
+    names = sorted(load_json_file(file_path, "0", ("train", "val")))
+    for i in range(len(names)) if mesh is None else mesh.cases(len(names)):
+        name = names[i]
         img = read_nifti(os.path.join(data_root, "data", name + "data_cut.nii.gz"))
         # seeded from (1, i), where the JAX twin folds i into key 1
         draws = ({"drop_draws": drop_draws[i]} if drop_draws is not None else
@@ -132,11 +136,15 @@ def save_weight_break(
     br_weight_dir: str,
     br_skel_dir: str,
     file_path: str,
+    mesh=None,
 ):
-    """Break-point priors (reference weight_br.py:113-177)."""
+    """Break-point priors (reference weight_br.py:113-177). With a `mesh`
+    each rank writes its share of the cases (`DataMesh.cases`)."""
     os.makedirs(br_weight_dir, exist_ok=True)
     os.makedirs(br_skel_dir, exist_ok=True)
     names = sorted(load_json_file(file_path, "0", ("train", "val")))
+    if mesh is not None:
+        names = [names[i] for i in mesh.cases(len(names))]
     for name in names:
         label = read_nifti(
             os.path.join(data_root, "mask", name + "mask_cut.nii.gz")

@@ -42,12 +42,29 @@ choices:
     carried: the step is `make_resilient_step`, whose out-of-memory
     fallback is `remat=True`. Nor is `StageConfig.validate_every`, which
     no JAX driver reads.
-  * `mesh` and `replay_bucket` raise NotImplementedError (sharded
-    training is not ported yet).
   * Device. `StageConfig.device` (default None: `cuda`, raising without
     CUDA; tests pass "cpu"). Datasets yield numpy batches on the host;
     the driver uploads a copy per step and hands the host arrays, with
     the per-crop losses fetched once per step, to the online cache.
+
+On a mesh (`StageConfig.mesh`, a `parallel.DataMesh`; JAX `stages.py`
+:65-74, :146-156, :193-232) every rank runs the driver:
+  * every rank builds the same global batch from the seeded datasets (the
+    crops of one process) and the sharded step uploads only its rows; the
+    replay's B=1 steps run replicated through the same step, or with
+    `replay_bucket` in buckets of n_data crops through the sharded step,
+    the tail at B=1;
+  * rank 0 alone writes (`SE_UNet_<ep>.pt`, `state_<ep>.pt`,
+    `resume_meta.json`, the online cache, TensorBoard, the LOG book) and
+    prints the loss. A barrier follows the cache's writes before the
+    replay reads them, and the driver's last write before it returns;
+    every rank resumes from the same newest state;
+  * validation splits the val cases over the ranks, each with an
+    unsharded runner of its own (`infer.engine.validate(mesh=...)`): each
+    case sees the draws of one process, and every rank gets the same
+    (td, bd, vr, vh), so the ranks' schedulers and learning rates stay
+    equal. The JAX drivers validate on one device while the others idle;
+    here no rank waits in a collective through a whole validation.
 """
 
 from __future__ import annotations
@@ -64,6 +81,7 @@ import torch
 from ..data.datasets import OnlineCrops, Prefetcher, Stage1Crops, Stage2Crops, Stage3Crops
 from ..data.splits import load_json_file
 from ..models.se_unet import SEUNet, SEUNetConfig, _tree_map
+from ..parallel.mesh import broadcast_tree, check_mesh
 from ..utils.devices import resolve_device
 from .checkpoint import load_params, load_state, save_params, save_state
 from .online_cache import OnlineCache
@@ -93,10 +111,15 @@ class StageConfig:
     br_skel_path: str | None = None
     br_weight_path: str | None = None
     start_params: Any = None  # parameter tree or checkpoint path
-    mesh: Any = None  # not ported yet: raises
+    mesh: Any = None  # a parallel.DataMesh: data parallelism over its ranks
     model_cfg: SEUNetConfig = dataclasses.field(default_factory=SEUNetConfig)
-    replay_bucket: bool = False  # the JAX package's mesh-only replay batching: raises
-    device: Any = None  # None -> cuda (raises without CUDA); "cpu" for tests
+    # Online-HM replay batching on a mesh. False keeps the reference's
+    # sequential B=1 updates (replicated single-crop steps on every rank);
+    # True stacks n_data consecutive cached crops per sharded step: a
+    # deliberate deviation (one update on the bucket instead of n) that
+    # spreads the replay over the ranks. No effect without a mesh.
+    replay_bucket: bool = False
+    device: Any = None  # None -> cuda, the rank's under a mesh (raises without CUDA)
 
 
 class Draws:
@@ -134,7 +157,8 @@ def _auto_resume(cfg: StageConfig, state):
     if os.path.exists(meta_path):
         with open(meta_path) as f:
             meta = json.load(f)
-    print(f"[resume] continuing from epoch {ep + 1} ({latest})")
+    if _is_main(cfg):
+        print(f"[resume] continuing from epoch {ep + 1} ({latest})")
     return state, ep + 1, meta
 
 
@@ -153,9 +177,18 @@ def _save_resume_point(cfg: StageConfig, state, ep: int, meta: dict):
         os.remove(old)
 
 
+def _is_main(cfg: StageConfig) -> bool:
+    """Whether this process writes: the only one, or rank 0 of the mesh."""
+    return cfg.mesh is None or cfg.mesh.is_main
+
+
+def _barrier(cfg: StageConfig) -> None:
+    if cfg.mesh is not None:
+        cfg.mesh.barrier()
+
+
 def _init_state(cfg: StageConfig, stage: int, device: torch.device):
-    if cfg.mesh is not None or cfg.replay_bucket:
-        raise NotImplementedError("sharded training (mesh, replay_bucket) is not ported yet")
+    check_mesh(cfg.mesh)
     opt, lr_fn = make_optimizer(base_lr=cfg.lr, milestones=cfg.milestones)
     if cfg.start_params is None:
         gen = torch.Generator().manual_seed(cfg.seed)
@@ -168,22 +201,31 @@ def _init_state(cfg: StageConfig, stage: int, device: torch.device):
     # create_train_state copies the leaves: the caller's tree is not
     # updated in place by this stage's optimizer
     state = create_train_state(params, opt)
+    if cfg.mesh is not None:
+        broadcast_tree(state.params)
     # the online-HM replay feeds batch-size-1 items through the same
-    # step (reference DataLoader(batch_size=1), train.py:470-478)
-    step_fn = make_resilient_step(cfg.model_cfg, stage=stage)
+    # step (reference DataLoader(batch_size=1), train.py:470-478), which
+    # runs them replicated on a mesh
+    step_fn = make_resilient_step(cfg.model_cfg, stage=stage, mesh=cfg.mesh)
     return state, step_fn, lr_fn
 
 
-def _upload(batch: dict, device: torch.device) -> dict:
+def _feed(batch: dict, device: torch.device, mesh) -> dict:
+    """The step's batch: uploaded to `device`, or on a mesh the host
+    arrays, of which the sharded step uploads this rank's rows."""
+    if mesh is not None:
+        return batch
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
 
 
 def _epoch_pass(state, step_fn, batches, draws: Draws, device, log_every=10, cache=None,
-                cache_limit=0, epoch=0, n_volumes=0, writer=None):
+                cache_limit=0, epoch=0, n_volumes=0, writer=None, mesh=None):
+    """The main pass; on a mesh `cache` and `writer` are rank 0's alone
+    (None on the other ranks), which also logs."""
     losses = []
     for it, batch in enumerate(batches):
         batch.pop("name", None)
-        state, aux = step_fn(state, _upload(batch, device),
+        state, aux = step_fn(state, _feed(batch, device, mesh),
                              **draws.step(batch["image"].shape[0]))
         loss = float(aux["loss"])
         losses.append(loss)
@@ -192,33 +234,54 @@ def _epoch_pass(state, step_fn, batches, draws: Draws, device, log_every=10, cac
         scalars = {k: float(aux[k]) for k in _SCALARS if k in aux}
         if writer is not None:
             writer.add_scalars("Train", {"loss": loss, **scalars}, it + epoch * n_volumes)
-        if it % log_every == 0:
+        if it % log_every == 0 and (mesh is None or mesh.is_main):
             parts = [f"epoch: {epoch}", f"iter {it + epoch * n_volumes}", f"loss: {loss:.4f}"]
             parts += [f"{k}: {v:.4f}" for k, v in scalars.items()]
             print(" ".join(parts))
     return state, losses
 
 
-def _replay_pass(state, replay, step_fn, draws: Draws, device):
-    """Online hard-mining second pass over the epoch's cached crops: one
-    B=1 step per crop, the reference's DataLoader(batch_size=1)
-    (reference train.py:469-491)."""
+def _replay_pass(cfg: StageConfig, state, replay, step_fn, draws: Draws, device):
+    """Online hard-mining second pass over the epoch's cached crops
+    (reference train.py:469-491): one B=1 step per crop, the reference's
+    DataLoader(batch_size=1), replicated on a mesh. With
+    `cfg.replay_bucket` on a mesh, consecutive crops stack into buckets of
+    n_data for the sharded step; the bucket tail runs at B=1."""
+    bucket_n = 0
+    if cfg.replay_bucket and cfg.mesh is not None:
+        bucket_n = int(cfg.mesh.shape[cfg.mesh.axis_names[0]])
+
+    def run(state, items):
+        batch = {k: np.stack([np.asarray(it[k], np.float32) for it in items])
+                 for k in items[0]}
+        state, _ = step_fn(state, _feed(batch, device, cfg.mesh), **draws.step(len(items)))
+        return state
+
+    buf = []
     for item in replay:
         item.pop("name", None)
-        batch = {k: np.asarray(v, np.float32)[None] for k, v in item.items()}
-        state, _ = step_fn(state, _upload(batch, device), **draws.step(1))
+        if bucket_n > 1:
+            buf.append(item)
+            if len(buf) == bucket_n:
+                state, buf = run(state, buf), []
+        else:
+            state = run(state, [item])
+    for item in buf:  # bucket tail: reference-style B=1
+        state = run(state, [item])
     return state
 
 
 def _validate(cfg: StageConfig, params, epoch: int, stage: int, device, dti=False,
               runner=None):
+    """The validation's (td, bd, vr, vh); on a mesh every rank validates
+    its share of the cases and returns the same values."""
     from ..infer.engine import validate  # the engine imports train.logbook
 
     names = load_json_file(cfg.file_path, "0", ("val",))
     return validate(
         params, cfg.model_cfg, names, cfg.data_root, cfg.file_root,
         epoch, cfg.log_savepath, dti=dti, stage=stage,
-        cube=cfg.cube, step=cfg.cube // 2, runner=runner, device=device,
+        cube=cfg.cube, step=cfg.cube // 2, runner=runner, device=device, mesh=cfg.mesh,
     )
 
 
@@ -231,12 +294,29 @@ def _make_val_runner(cfg: StageConfig, params, device):
                                step=cfg.cube // 2, device=device)
 
 
-def _writer(cfg: StageConfig) -> SummaryWriter:
+def _writer(cfg: StageConfig) -> SummaryWriter | None:
+    if not _is_main(cfg):
+        return None
     return SummaryWriter(os.path.join(os.path.dirname(cfg.log_savepath) or ".", "tb"))
 
 
+def _save(cfg: StageConfig, state, ep: int, meta: dict) -> None:
+    """The epoch's parameter file and resume point, by rank 0 alone."""
+    if _is_main(cfg):
+        save_params(state.params, cfg.model_savepath, ep)
+        _save_resume_point(cfg, state, ep, meta)
+
+
+def _finish(cfg: StageConfig, writer) -> None:
+    """Close the writer; on a mesh every rank returns once rank 0's files
+    are written."""
+    if writer is not None:
+        writer.close()
+    _barrier(cfg)
+
+
 def train_stage1(cfg: StageConfig):
-    device = resolve_device(cfg.device)
+    device = resolve_device(cfg.device, cfg.mesh)
     dataset = Stage1Crops(
         cfg.file_path, cfg.data_root, cfg.file_root,
         batch_size=cfg.batch_size, cube=cfg.cube, aug=cfg.aug, seed=cfg.seed,
@@ -251,26 +331,26 @@ def train_stage1(cfg: StageConfig):
         state = set_learning_rate(state, lr_fn(ep))
         state, _ = _epoch_pass(
             state, step_fn, Prefetcher(dataset), draws, device,
-            epoch=ep, n_volumes=len(dataset), writer=writer,
+            epoch=ep, n_volumes=len(dataset), writer=writer, mesh=cfg.mesh,
         )
         if ep == cfg.epochs - 1:
             # reference __main__ runs stage 1 with DTI=1 (train.py:872)
             # so the final-epoch validation binarizes via hysteresis
             _validate(cfg, state.params, ep, 1, device, dti=True)
-        save_params(state.params, cfg.model_savepath, ep)
-        _save_resume_point(cfg, state, ep, {})
-    writer.close()
+        _save(cfg, state, ep, {})
+    _finish(cfg, writer)
     return state
 
 
 def _train_hard_mining(cfg: StageConfig, stage: int, dataset, scheduler):
     """Stages 2 and 3: the epoch pass with the online cache, the replay,
     validation and the scheduler update every epoch."""
-    device = resolve_device(cfg.device)
+    device = resolve_device(cfg.device, cfg.mesh)
     state, step_fn, lr_fn = _init_state(cfg, stage, device)
     writer = _writer(cfg)
     with_skel = stage == 3
-    cache = OnlineCache(cfg.online_savepath, with_skel=with_skel)
+    main = _is_main(cfg)
+    cache = OnlineCache(cfg.online_savepath, with_skel=with_skel) if main else None
     hist: dict[str, list] = {"tr": [], "th": [], "td": [], "bd": []}
     cache_limit = int(len(dataset) * cfg.batch_size * 0.3)
     state, start_ep, meta = _auto_resume(cfg, state)
@@ -282,7 +362,8 @@ def _train_hard_mining(cfg: StageConfig, stage: int, dataset, scheduler):
     draws = Draws(cfg.seed, device)
     val_runner = _make_val_runner(cfg, state.params, device)
     for ep in range(start_ep, cfg.epochs):
-        cache.reset()
+        if main:
+            cache.reset()
         dataset.hard_ratio = scheduler.hard_ratio
         if with_skel:
             dataset.break_ratio = scheduler.break_ratio
@@ -293,28 +374,28 @@ def _train_hard_mining(cfg: StageConfig, stage: int, dataset, scheduler):
         state, _ = _epoch_pass(
             state, step_fn, Prefetcher(dataset), draws, device,
             cache=cache, cache_limit=cache_limit, epoch=ep,
-            n_volumes=len(dataset), writer=writer,
+            n_volumes=len(dataset), writer=writer, mesh=cfg.mesh,
         )
         # online hard-mining second pass in shuffled order, like the
         # reference's DataLoader(shuffle=True) over the cached crops
         # (reference train.py:469-491, data.py:586-607)
         state = set_learning_rate(state, lr_fn(2 * ep + 1))
+        _barrier(cfg)  # rank 0's cache is complete
         replay = OnlineCrops(cfg.online_savepath, rate=1.0, with_skel=with_skel,
                              shuffle_rng=np.random.default_rng(draws.shuffle_seed()))
-        state = _replay_pass(state, replay, step_fn, draws, device)
+        state = _replay_pass(cfg, state, replay, step_fn, draws, device)
         td, bd, vr, vh = _validate(cfg, state.params, ep, stage, device, runner=val_runner)
         hist["td"].append(td)
         hist["bd"].append(bd)
         hist["tr"].append(vr)
         hist["th"].append(vh)
         scheduler.update(ep, hist["tr"], hist["th"], hist["td"], hist["bd"])
-        save_params(state.params, cfg.model_savepath, ep)
         meta = {"hard_ratio": scheduler.hard_ratio}
         if with_skel:
             meta["break_ratio"] = scheduler.break_ratio
         meta["hist"] = hist
-        _save_resume_point(cfg, state, ep, meta)
-    writer.close()
+        _save(cfg, state, ep, meta)
+    _finish(cfg, writer)
     return state
 
 

@@ -16,13 +16,39 @@ The step also returns per-crop GUL losses (stages 2/3), the signal the
 online hard-mining cache keys its filenames on (reference
 train.py:442-453).
 
+Under a mesh (`parallel.make_mesh`; JAX `step.py:195-233`) every rank
+runs the step on its rows [r*B/n, (r+1)*B/n) of the global batch
+(`step.place`), and the step's outputs are global on every rank:
+  * the loss is a ratio of global sums (`losses.py`): one `all_sum`,
+    whose backward is the identity, adds the ranks' sums, with the
+    per-crop GUL of every crop in its global place; the ranks' gradients
+    then add up to the one-process gradient, in one all_reduce of one
+    bucket (1,520,314 float32 parameters in 117 leaves, 6.1 MB);
+  * DropLayer's scale sums its mask over the whole batch, so every rank
+    draws the global (B, .) uniforms from the same seeded generator (or
+    takes the global `drop_draws`) and uses its own rows of them;
+  * a batch that does not divide over the ranks (the online hard-mining
+    replay's B=1) runs replicated: every rank computes the whole batch and
+    rank 0's sums and gradients stand for all, so the ranks stay bitwise
+    equal;
+  * every rank reaches both collectives of a step whatever it raised,
+    and the gradient bucket carries each rank's status: when any rank
+    failed, every rank raises before the optimizer step, with the
+    parameters unchanged. A rank re-raises its own error, the others a
+    RuntimeError, so no rank waits out the group's timeout; when every
+    failure was an out-of-memory error, each rank raises one and
+    `make_resilient_step` rebuilds and retries on all of them together.
+
 Counterpart of the JAX package's `train/step.py`, with these
 differences:
   * The parameters are a tree of leaf tensors that the step updates in
     place; the torch optimizer, a stateful object, lives in the
     `TrainState`, so the step builders take no optimizer argument.
-  * Sharded training (`mesh`, `shard_space`) is not ported yet and
-    raises NotImplementedError.
+  * Under a mesh the JAX package turns its Pallas kernels off
+    (`step.py:139-151`), since XLA cannot partition a single-device
+    program. Each rank of the port runs a single-device program of its
+    own, so the port's kernels stay on. The `space` axis (`shard_space`)
+    is not ported and raises NotImplementedError.
   * `make_resilient_step` falls back on `torch.cuda.OutOfMemoryError`.
     The JAX package's branch for its TPU compile relay's "remote compile
     HTTP 500" answers is not carried over: this path has no such relay.
@@ -35,9 +61,18 @@ import functools
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
-from ..losses import atr_loss, dice_loss, general_union_loss
-from ..models.se_unet import SEUNetConfig, _leaves, _tree_map, apply, apply_fast
+from ..losses import (
+    atr_sums,
+    dice_from_sums,
+    dice_sums,
+    general_union_loss,
+    general_union_sums,
+    union_from_sums,
+)
+from ..models.se_unet import SEUNetConfig, _leaves, _tree_map, apply, apply_fast, draw_dropout
+from ..parallel.mesh import all_sum, batch_sharding, check_mesh, flat, replicated, unflat
 
 
 @dataclasses.dataclass
@@ -96,6 +131,43 @@ def _per_crop_gul(prob, target, weight):
     return torch.stack([general_union_loss(p, t, w) for p, t, w in zip(prob, target, weight)])
 
 
+def _stage_sums(stage: int, p_en, p_de, batch) -> list[tuple]:
+    """The sums of the stage's losses, in the order `_stage_losses` reads
+    them: dice(de), dice(en); or GUL(de), GUL(en)[, atr(en), atr(de)]."""
+    label = batch["label"]
+    if stage == 1:
+        return [dice_sums(p_de, label), dice_sums(p_en, label)]
+    weight = batch["weight"]
+    sums = [general_union_sums(p_de, label, weight), general_union_sums(p_en, label, weight)]
+    if stage == 3:
+        sums += [atr_sums(p_en, batch["skel"], weight), atr_sums(p_de, batch["skel"], weight)]
+    return sums
+
+
+_N_SUMS = {1: (3, 3), 2: (2, 2), 3: (2, 2, 2, 2)}  # each loss's sums, per stage
+
+
+def _stage_losses(stage: int, sums) -> tuple:
+    """(loss, aux) of the stage from its losses' sums."""
+    if stage == 1:
+        l_de, l_en = dice_from_sums(sums[0]), dice_from_sums(sums[1])
+        return l_de + l_en, {"dice_de": l_de, "dice_en": l_en}
+    l_de, l_en = union_from_sums(sums[0]), union_from_sums(sums[1])
+    loss = l_de + 0.5 * l_en
+    aux = {"gul_de": l_de, "gul_en": l_en}
+    if stage == 3:
+        a_en, a_de = union_from_sums(sums[2]), union_from_sums(sums[3])
+        loss = loss + 0.5 * (a_en + a_de)
+        aux["atr_en"], aux["atr_de"] = a_en, a_de
+    return loss, aux
+
+
+def _heads(apply_fn, cfg: SEUNetConfig, params, image, **draws):
+    """The two heads' probabilities in float32, train mode."""
+    en, de = apply_fn(params, image, cfg=cfg, train=True, **draws)
+    return torch.sigmoid(en[..., 0].to(torch.float32)), torch.sigmoid(de[..., 0].to(torch.float32))
+
+
 def make_loss_fn(cfg: SEUNetConfig = SEUNetConfig(), stage: int = 1, fast: bool = True):
     """loss_fn(params, batch, generator=None, drop_draws=None) ->
     (loss, aux) of one stage, the train-mode forward included.
@@ -109,30 +181,11 @@ def make_loss_fn(cfg: SEUNetConfig = SEUNetConfig(), stage: int = 1, fast: bool 
     apply_fn = apply_fast if fast else apply
 
     def loss_fn(params, batch, generator=None, drop_draws=None):
-        en, de = apply_fn(params, batch["image"], cfg=cfg, train=True,
-                          generator=generator, drop_draws=drop_draws)
-        p_en = torch.sigmoid(en[..., 0].to(torch.float32))
-        p_de = torch.sigmoid(de[..., 0].to(torch.float32))
-        label = batch["label"]
-        aux = {}
-        if stage == 1:
-            l_de = dice_loss(p_de, label)
-            l_en = dice_loss(p_en, label)
-            loss = l_de + l_en
-            aux["dice_de"], aux["dice_en"] = l_de, l_en
-        else:
-            weight = batch["weight"]
-            l_de = general_union_loss(p_de, label, weight)
-            l_en = general_union_loss(p_en, label, weight)
-            loss = l_de + 0.5 * l_en
-            aux["gul_de"], aux["gul_en"] = l_de, l_en
-            aux["per_crop_gul"] = _per_crop_gul(p_de, label, weight)
-            if stage == 3:
-                skel = batch["skel"]
-                a_en = atr_loss(p_en, skel, weight)
-                a_de = atr_loss(p_de, skel, weight)
-                loss = loss + 0.5 * (a_en + a_de)
-                aux["atr_en"], aux["atr_de"] = a_en, a_de
+        p_en, p_de = _heads(apply_fn, cfg, params, batch["image"], generator=generator,
+                            drop_draws=drop_draws)
+        loss, aux = _stage_losses(stage, _stage_sums(stage, p_en, p_de, batch))
+        if stage > 1:
+            aux["per_crop_gul"] = _per_crop_gul(p_de, batch["label"], batch["weight"])
         aux["loss"] = loss
         return loss, aux
 
@@ -146,9 +199,15 @@ def make_train_step(cfg: SEUNetConfig = SEUNetConfig(), stage: int = 1, mesh=Non
     the DropLayer draws, or `drop_draws` gives them; see `make_loss_fn`
     for the batch. The state's parameters and optimizer are updated in
     place. `fast` uses the s2d `apply_fast` path (gradient-equivalent to
-    the reference-layout `apply`); `cfg.remat` checkpoints the blocks."""
-    if mesh is not None or shard_space:
-        raise NotImplementedError("sharded training (mesh, shard_space) is not ported yet")
+    the reference-layout `apply`); `cfg.remat` checkpoints the blocks.
+
+    With a `mesh` (a `parallel.DataMesh`) the step takes the global batch
+    (numpy arrays or tensors on any device), uploads this rank's rows
+    (`step.place`) and returns the global aux on every rank; see the
+    module docstring. `shard_space=True` raises NotImplementedError."""
+    check_mesh(mesh, shard_space)
+    if mesh is not None:
+        return _make_sharded_step(cfg, stage, mesh, fast)
     loss_fn = make_loss_fn(cfg, stage, fast)
 
     def step(state: TrainState, batch, rng=None, *, drop_draws=None):
@@ -162,6 +221,87 @@ def make_train_step(cfg: SEUNetConfig = SEUNetConfig(), stage: int = 1, mesh=Non
     return step
 
 
+def _make_sharded_step(cfg: SEUNetConfig, stage: int, mesh, fast: bool):
+    apply_fn = apply_fast if fast else apply
+    n_sums = sum(_N_SUMS[stage])
+
+    def place(batch, device=None) -> dict:
+        """This rank's rows of each batch key (all of them when the batch
+        does not divide over the ranks) as tensors on `device` (default
+        the mesh's); JAX `step.py:217-228`."""
+        b = batch["image"].shape[0]
+        lay = batch_sharding(mesh) if b % mesh.size == 0 else replicated(mesh)
+        return {k: torch.as_tensor(lay(v)).to(device or mesh.device) for k, v in batch.items()}
+
+    def local_sums(params, local, draws, rows, b):
+        """This rank's loss sums and, for stages 2/3, its crops' GUL in
+        their global places of a zero-filled (b,) vector, as one vector."""
+        p_en, p_de = _heads(apply_fn, cfg, params, local["image"], drop_draws=draws,
+                            drop_rows=rows)
+        parts = [torch.stack(s) for s in _stage_sums(stage, p_en, p_de, local)]
+        if stage > 1:
+            per_crop = p_de.new_zeros(b)
+            per_crop[rows] = _per_crop_gul(p_de, local["label"], local["weight"]).detach()
+            parts.append(per_crop)
+        return torch.cat(parts)
+
+    def step(state: TrainState, batch, rng=None, *, drop_draws=None):
+        b = batch["image"].shape[0]
+        sharded = b % mesh.size == 0
+        rows = mesh.rows(b) if sharded else slice(None)
+        if drop_draws is None:
+            if rng is None:
+                raise ValueError("the train step needs rng= or drop_draws= for DropLayer")
+            drop_draws = draw_dropout(b, cfg, rng)
+        leaves = list(_leaves(state.params))
+        dev = leaves[0].device
+        state.optimizer.zero_grad(set_to_none=True)
+        # replicated: every rank computes the whole batch, rank 0's part counts
+        share = 1.0 if sharded or mesh.is_main else 0.0
+        error = None
+        try:
+            local = place(batch, dev)
+            vec = local_sums(state.params, local, drop_draws, rows, b) * share
+        except Exception as e:  # every rank must still reach both collectives
+            error = e
+            vec = torch.zeros(n_sums + (b if stage > 1 else 0), device=dev)
+        total = all_sum(vec)
+        parts = list(torch.split(total[:n_sums], _N_SUMS[stage]))
+        loss, aux = _stage_losses(stage, [p.unbind() for p in parts])
+        if error is None:
+            try:
+                loss.backward()
+            except Exception as e:
+                error = e
+        grads = [t.grad for t in leaves]
+        oom = isinstance(error, torch.cuda.OutOfMemoryError)
+        bucket = flat([torch.zeros_like(t) if error is not None or g is None else g
+                       for t, g in zip(leaves, grads)], float(error is not None), float(oom))
+        dist.all_reduce(bucket)
+        n_failed, n_oom = int(bucket[-2].item()), int(bucket[-1].item())
+        if n_failed:
+            state.optimizer.zero_grad(set_to_none=True)
+            if error is not None and not oom:
+                raise error
+            if n_failed > n_oom:
+                raise RuntimeError(f"{n_failed - n_oom} of {mesh.size} ranks failed in the "
+                                   f"step (this is rank {mesh.rank})")
+            raise torch.cuda.OutOfMemoryError(
+                f"{n_failed} of {mesh.size} ranks ran out of device memory in the step "
+                f"(this is rank {mesh.rank})")
+        for t, g, v in zip(leaves, grads, unflat(bucket, leaves)):
+            t.grad = None if g is None else v
+        state.optimizer.step()
+        state.step += 1
+        if stage > 1:
+            aux["per_crop_gul"] = total[n_sums:]
+        aux["loss"] = loss
+        return state, {k: v.detach() for k, v in aux.items()}
+
+    step.place = place
+    return step
+
+
 def make_resilient_step(cfg: SEUNetConfig = SEUNetConfig(), stage: int = 1, mesh=None,
                         shard_space: bool = False, fast: bool = True, _make_step=None):
     """make_train_step plus an out-of-memory fallback: when the step
@@ -172,7 +312,9 @@ def make_resilient_step(cfg: SEUNetConfig = SEUNetConfig(), stage: int = 1, mesh
     wrapper; a second OOM propagates. A retry draws fresh DropLayer
     numbers from `rng` unless `drop_draws` are given. The parameters
     change only in the optimizer's step, after the backward, where the
-    memory peak lies. `_make_step` is an injection point for tests."""
+    memory peak lies. Under a mesh every rank raises the error when any
+    rank ran out of memory, so all ranks fall back and retry together.
+    `_make_step` is an injection point for tests."""
     make = _make_step or make_train_step
     holder = {"fn": make(cfg, stage, mesh, shard_space, fast), "fellback": False}
 

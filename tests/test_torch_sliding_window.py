@@ -162,7 +162,7 @@ def test_eval_mode_ignores_draws_and_train_mode_needs_them(runners):
         r.predict_hu(vol)
     with pytest.raises(ValueError, match="tile batches"):
         r.predict_trits(vol, drop_draws=[])
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DataMesh"):
         SlidingWindowRunner(pr.params, SEUNetConfig(), cube=CUBE, step=STEP, mesh=object(),
                             device="cpu")
 

@@ -279,8 +279,11 @@ def test_checkpoints_written(env, port_run, stage):
 
 
 def test_mesh_and_replay_bucket_raise(env, stage):
-    for kw in ({"mesh": object()}, {"replay_bucket": True}):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    """A mesh is a parallel.DataMesh (the drivers on one:
+    tests/test_torch_parallel_drivers.py); anything else is rejected, with
+    or without `replay_bucket`."""
+    for kw in ({"mesh": object()}, {"mesh": object(), "replay_bucket": True}):
+        with pytest.raises(TypeError, match="DataMesh"):
             _train(pstages, stage)(_cfg(pstages, env, "raise", stage, None, device="cpu", **kw))
 
 
