@@ -146,6 +146,25 @@ Needs one CUDA card and nvcc; exits non-zero without them. Phases:
    every step's launches, the losses and parameters equal on the ranks,
    the files written by rank 0 alone, the validation split by case
    (`data_parallel_path`);
+9f. space path: the mesh's `space` axis (each crop's depth split over
+   ranks). K1, K2 and K5 at the depth-slab shapes of 128^3 crops on 2
+   space ranks, (8, 32, 64, 64, 8C) and (8, 16, 32, 32, 8C), the phased
+   forms on their (nz+1)-plane window grids, against their plain versions
+   with the kernel phase's checks (ms, design, bound). Then two ranks
+   sharing the card over gloo as a (data 1, space 2) mesh (spawned; their
+   times are not a scaling figure): the f32 stage-3 step at 32^3, global
+   batch 2, depth split, against one process (cuDNN deterministic on both
+   sides: the loss within SP_F32_LOSS_RTOL, the per-crop GUL, each
+   gradient leaf within SP_F32_LEAF_RTOL of its norm; the ranks'
+   parameters bitwise equal); the depth-split stage-1 step at 128^3,
+   batch 8, bf16: per rank the median of SP_STEPS steps after a warm-up,
+   peak memory (against train_path's), launches 10/5/5/2 a step, then one
+   step with every halo exchange and statistics sum timed between two
+   synchronizes (their count, bytes and seconds); the depth-split runner
+   on the phantom (batch 8, 64 planes a rank): seconds a volume, launches
+   10/5 a tile batch, the scores within SP_SCORE_ATOL of the one-process
+   runner's, at most SP_TRIT_FRACTION of the trits different from
+   main_path's (`space_path`);
 10. conv_stats kernels: `phased_conv_stats` (the wgmma kernel, `design`
    "wgmma" on its lines) at the 5 phased and `dil2_conv_stats` (the
    halo-brick wgmma kernel, `design` "halo-brick wgmma", with its tile:
@@ -339,6 +358,22 @@ DP_F32_LEAF_RTOL = 1e-6
 DP_F32_BATCH_LEAF_RTOL = 1e-2
 DP_SCORE_ATOL = 0.02
 DP_TRIT_FRACTION = 1e-4
+# space_path: the mesh's `space` axis, (data 1, space 2) over gloo with the
+# two ranks sharing the card (not a scaling figure): the f32 check's
+# (global batch, crop) and its bounds against one process (cuDNN's
+# deterministic algorithms on both sides; the depth split adds each crop's
+# statistics in another order, and a one-ulp change of the input moves a
+# leaf of the CPU test's step by 6.5e-3, the split by up to 1.1e-2, while
+# a wrong adjoint moves one by 0.87 or more: PERF.md §6), the timed
+# full-width steps, and the eval forward's bounds against one process
+# and main_path (as the data axis's).
+SP_RANKS = 2
+SP_STEPS = 3
+SP_F32 = (2, 32)
+SP_F32_LOSS_RTOL = 1e-5
+SP_F32_LEAF_RTOL = 5e-2
+SP_SCORE_ATOL = DP_SCORE_ATOL
+SP_TRIT_FRACTION = DP_TRIT_FRACTION
 
 
 def ptxas_report(log: str) -> dict:
@@ -1232,7 +1267,7 @@ def train_path_phase(vol: np.ndarray, lumen: torch.Tensor):
         "losses": losses, "fixed_draw_loss_before": loss_before,
         "fixed_draw_loss_after": loss_after, "launches": launches,
         "label_share": float(batch["label"].mean())}})
-    return launches, med, batch, fixed
+    return launches, med, batch, fixed, peak
 
 
 def remat_phase(batch: dict, draws: list) -> None:
@@ -2488,6 +2523,266 @@ def data_parallel_path_phase(vol: np.ndarray, lumen: torch.Tensor, branch: np.nd
     torch.cuda.empty_cache()
 
 
+def slab_kernel_lines() -> dict:
+    """K1, K2 and K5 at the depth-slab shapes of the space path (8 crops of
+    128^3 on 2 space ranks: (8, 32, 64, 64, 8C) at the full grid, (8, 16,
+    32, 32, 8C) at the 1/2 grid; the phased forms on the (nz+1, n+1, n+1)
+    window grid), each against its plain version with the kernel phase's
+    checks (K1/K2 `bf16_mismatch`, K5 one bf16 ulp), with ms and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    dev = torch.device("cuda")
+    out = {"gathered_epilogue": [], "phased_epilogue": [], "phased_normalize": []}
+    calls = [("gathered_epilogue", *c) for c in GATHERED] + \
+        [("phased_epilogue", *c) for c in PHASED] + \
+        [("phased_normalize", blk, n, c8, 0) for blk, n, c8, _ in PHASED]
+    for kind, block, n, c8, gates in calls:
+        nz = n // SP_RANKS
+        ext = 0 if kind == "gathered_epilogue" else 1
+        y = torch.randn((BATCH, nz + ext, n + ext, n + ext, c8), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        scale8 = 0.5 + torch.rand((BATCH, c8), generator=gen, device=dev)
+        shift8 = 0.3 * torch.randn((BATCH, c8), generator=gen, device=dev)
+        wse = (0.1 * torch.randn((gates, c8 // 8), generator=gen, device=dev)).to(
+            torch.bfloat16) if gates else None
+        args = (y, scale8, shift8) + ((wse,) if kind != "phased_normalize" else ())
+        kernel, plain = getattr(eps, kind), getattr(eps, kind + "_plain")
+        got, ref = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        if kind == "phased_normalize":
+            d = (got.float() - ref.float()).abs()
+            err, ok = float(d.max()), bool((d <= bf16_ulp(ref)).all())
+        else:
+            err, ok = bf16_mismatch(got, ref)
+        if not ok or got.shape != (BATCH, nz, n, n, c8) or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{kind} {block} on a depth slab {tuple(y.shape)}: kernel "
+                                 f"disagrees with its plain version (max |d| {err})")
+        b_ms, b_by = bound(2, got.numel(), c8, gates)
+        out[kind].append({"block": block, "shape": list(y.shape), "gates": gates,
+                          "design": eps.pick_design(y, ext == 1, kind == "phased_normalize"),
+                          "ms": cuda_ms(lambda: kernel(*args)), "bound_ms": b_ms,
+                          "bound_by": b_by, "max_abs_diff": err})
+        del y, got, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def _timed_exchanges(records: list):
+    """Patches for the space axis's two collectives that synchronize
+    around each call and record (kind, seconds, buffer bytes)."""
+    from se_unet_airseg_tpu_torch.parallel import mesh as pmesh
+
+    def wrap(kind, fn):
+        def call(t, mesh):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(t, mesh)
+            torch.cuda.synchronize()
+            records.append((kind, time.perf_counter() - t0, t.numel() * t.element_size()))
+            return out
+        return call
+
+    return mock.patch.multiple(pmesh, _exchange_planes=wrap("halo", pmesh._exchange_planes),
+                               _space_reduce=wrap("space_sum", pmesh._space_reduce))
+
+
+def _space_rank(mesh, vol: np.ndarray, lumen: np.ndarray, f32_batch: dict,
+                f32_draws: list) -> dict:
+    """The two-rank parts of `space_path` on one rank of the (1, 2) mesh
+    (gloo, both ranks on the one card): (a) the f32 stage-3 step of 32^3
+    crops, global batch 2, depth split, cuDNN deterministic; (b) the
+    stage-1 step at 128^3, batch 8, bf16, depth split: a warm-up, SP_STEPS
+    timed steps, then one step with every halo exchange and sum timed
+    between two synchronizes; (c) the depth-split runner (batch 8, bf16, the
+    main path's weights) on the phantom. Launches are counted from 0
+    before (b)'s timed steps and (c)'s timed volume."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    out = {}
+
+    # (a) f32 parity, cuDNN's deterministic algorithms
+    cfg = SEUNetConfig()
+    tree = SEUNet(cfg, generator=torch.Generator().manual_seed(3)).to(dev).params_tree()
+    state = create_train_state(tree, make_optimizer()[0])
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        state, aux = make_train_step(cfg, stage=3, mesh=mesh, shard_space=True)(
+            state, f32_batch, drop_draws=f32_draws)
+    out["f32"] = {"loss": float(aux["loss"]), "grads": grads_of(state),
+                  "params": [t.detach().cpu() for t in _leaves(state.params)],
+                  "per_crop_gul": aux["per_crop_gul"].cpu()}
+    del state, tree, aux
+
+    # (b) full width
+    cfg = SEUNetConfig(compute_dtype=torch.bfloat16)
+    tree = SEUNet(cfg, generator=torch.Generator().manual_seed(0)).to(dev).params_tree()
+    state = create_train_state(tree, make_optimizer()[0])
+    del tree
+    step = make_train_step(cfg, stage=1, mesh=mesh, shard_space=True)
+    batch = phantom_batch(vol, torch.from_numpy(lumen).to(dev))
+    gen = torch.Generator(device=dev).manual_seed(6)
+    state, aux = step(state, batch, gen)
+    losses = [float(aux["loss"])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mesh.barrier()
+    reset_launch_counts()
+    step_s = []
+    for _ in range(SP_STEPS):
+        t0 = time.perf_counter()
+        state, aux = step(state, batch, gen)
+        losses.append(float(aux["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    launches = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    records = []
+    with _timed_exchanges(records):
+        t0 = time.perf_counter()
+        state, aux = step(state, batch, gen)
+        losses.append(float(aux["loss"]))
+        timed_step_s = time.perf_counter() - t0
+    halo = [r for r in records if r[0] == "halo"]
+    sums = [r for r in records if r[0] == "space_sum"]
+    out["full"] = {"step_s_runs": step_s, "step_s": statistics.median(step_s),
+                   "peak_mem_gb": peak, "launches": launches, "losses": losses,
+                   "halo_exchanges": len(halo),
+                   "halo_buffer_bytes": sum(r[2] for r in halo),
+                   "halo_own_planes_bytes": sum(r[2] for r in halo) // mesh.space_size,
+                   "halo_s": sum(r[1] for r in halo),
+                   "space_sums": len(sums), "space_sum_bytes": sum(r[2] for r in sums),
+                   "space_sum_s": sum(r[1] for r in sums),
+                   "instrumented_step_s": timed_step_s}
+    del state, step, batch, aux
+    torch.cuda.empty_cache()
+
+    # (c) the depth-split eval forward
+    cfg, model = get_model(seed=0, compute_dtype=torch.bfloat16, device=dev)
+    runner = SlidingWindowRunner(model, cfg, cube=128, step=64, batch=BATCH, mesh=mesh)
+    kw = dict(h_thresh=0.5, l_thresh=0.35, hu_shift=-1024.0)
+    runner.predict_trits(vol, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mesh.barrier()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    trits = runner.predict_trits(vol, **kw)
+    torch.cuda.synchronize()
+    out["runner"] = {"s_per_volume": time.perf_counter() - t0, "launches": dict(launch_counts),
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "trits": trits,
+                     "scores": runner.predict_hu(vol, hu_shift=-1024.0)}
+    if not mesh.is_main:
+        del out["runner"]["scores"]
+    return out
+
+
+def space_path_phase(vol: np.ndarray, lumen: torch.Tensor, trits: np.ndarray,
+                     bare_step_s: float, peak_gb: float) -> None:
+    """The mesh's `space` axis (each crop's depth split over ranks) on the
+    one card: K1/K2/K5 at the slab shapes against their plain versions,
+    then two ranks sharing the card over gloo, a (data 1, space 2) mesh
+    (`_space_rank`; their times are not a scaling figure). Against one
+    process on the card: the f32 32^3 step's loss (SP_F32_LOSS_RTOL),
+    per-crop GUL and gradients (each leaf within SP_F32_LEAF_RTOL of its
+    norm; the one-process step run twice for the card's spread); the
+    runner's scores (SP_SCORE_ATOL) and trits against main_path's (at most
+    SP_TRIT_FRACTION differ). Across the ranks: the f32 parameters bitwise
+    equal, the runner's trits equal; every rank's launches 10/5/5/2 a step
+    and 10/5 a tile batch; every loss finite."""
+    t_phase = time.perf_counter()
+    line = {"ranks_share_one_card": "two ranks on one card: not a scaling figure",
+            "mesh": {"data": 1, "space": SP_RANKS}, "backend": "gloo",
+            "slab_kernels": slab_kernel_lines()}
+    b, s = SP_F32
+    r = np.random.default_rng(8)
+    f32_batch = {"image": r.random((b, s, s, s, 2), np.float32),
+                 "label": (r.random((b, s, s, s)) > 0.7).astype(np.float32),
+                 "weight": r.random((b, s, s, s)).astype(np.float32),
+                 "skel": (r.random((b, s, s, s)) > 0.9).astype(np.float32)}
+    f32_draws = draw_dropout(b, SEUNetConfig(), torch.Generator().manual_seed(8))
+    ref = []
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        for _ in range(2):
+            tree = SEUNet(SEUNetConfig(), generator=torch.Generator().manual_seed(3)).cuda() \
+                .params_tree()
+            state = create_train_state(tree, make_optimizer()[0])
+            state, aux = make_train_step(SEUNetConfig(), stage=3)(
+                state, {k: torch.from_numpy(v).cuda() for k, v in f32_batch.items()},
+                drop_draws=f32_draws)
+            ref.append((float(aux["loss"]), grads_of(state), aux["per_crop_gul"].cpu()))
+            del tree, state, aux
+    cfg, model = get_model(seed=0, compute_dtype=torch.bfloat16)
+    scores = SlidingWindowRunner(model, cfg, cube=128, step=64, batch=BATCH).predict_hu(
+        vol, hu_shift=-1024.0)
+    del model
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(_space_rank, SP_RANKS, vol, lumen.cpu().numpy(), f32_batch, f32_draws,
+                  devices=["cuda:0"] * SP_RANKS, threads=2, timeout_s=300, n_space=SP_RANKS)
+    spawn_s = time.perf_counter() - t0
+    (loss1, grads1, gul1), (_, grads_again, _) = ref
+    r0 = ranks[0]
+    ratios = leaf_ratios(r0["f32"]["grads"], grads1)
+    diff = np.abs(r0["runner"]["scores"] - scores)
+    n_trits = int((r0["runner"]["trits"] != trits).sum())
+    n_batches = 48 // BATCH
+    line.update({
+        "spawn_wall_s": spawn_s,
+        "f32_step": {"crop": s, "global_batch": b, "stage": 3, "loss_ranks": r0["f32"]["loss"],
+                     "loss_one_process": loss1,
+                     "per_crop_gul_max_abs_diff": float((r0["f32"]["per_crop_gul"]
+                                                         - gul1).abs().max()),
+                     "grad_leaf_norm_ratio_max": max(ratios),
+                     "grad_worst_leaf": worst_leaf(r0["f32"]["grads"], grads1),
+                     "one_process_repeat_grad_leaf_norm_ratio_max":
+                         max(leaf_ratios(grads_again, grads1)),
+                     "loss_rtol_bound": SP_F32_LOSS_RTOL,
+                     "grad_leaf_norm_ratio_bound": SP_F32_LEAF_RTOL, "cudnn": "deterministic"},
+        "train_step": {"crop": 128, "global_batch": BATCH, "depth_per_rank": 128 // SP_RANKS,
+                       "dtype": "bfloat16", "stage": 1, "bare_step_s_one_process": bare_step_s,
+                       "train_path_peak_mem_gb": peak_gb,
+                       **{f"rank{i}": r["full"] for i, r in enumerate(ranks)}},
+        "runner": {"shape": list(SHAPE), "cube": 128, "step": 64, "batch": BATCH,
+                   "depth_per_rank": 128 // SP_RANKS, "dtype": "bfloat16",
+                   "tile_batches": n_batches,
+                   "score_max_abs_diff_one_process": float(diff.max()),
+                   "score_max_abs_diff_bound": SP_SCORE_ATOL,
+                   "trit_voxels_differing_main_path": n_trits,
+                   "trit_voxels_differing_bound": int(SP_TRIT_FRACTION * trits.size),
+                   **{f"rank{i}": {k: v for k, v in r["runner"].items()
+                                   if k not in ("trits", "scores")}
+                      for i, r in enumerate(ranks)}},
+        "phase_wall_s": time.perf_counter() - t_phase})
+    emit({"space_path": line})
+
+    if not abs(r0["f32"]["loss"] - loss1) <= SP_F32_LOSS_RTOL * abs(loss1) or \
+            not max(ratios) <= SP_F32_LEAF_RTOL:
+        raise AssertionError(f"depth-split f32 step: loss {r0['f32']['loss']} against {loss1}, "
+                             f"leaf norm ratio {max(ratios)}")
+    if not torch.allclose(r0["f32"]["per_crop_gul"], gul1, rtol=SP_F32_LOSS_RTOL, atol=0):
+        raise AssertionError("depth-split per-crop GUL differs from one process")
+    if not all(torch.equal(a, b_) for a, b_ in zip(r0["f32"]["params"],
+                                                    ranks[1]["f32"]["params"])):
+        raise AssertionError("the ranks' parameters differ after the depth-split step")
+    for i, r in enumerate(ranks):
+        expect_launches(f"rank {i}'s depth-split train steps", r["full"]["launches"],
+                        {k: v * SP_STEPS for k, v in STEP_LAUNCHES.items()})
+        expect_launches(f"rank {i}'s depth-split runner", r["runner"]["launches"],
+                        counts(gathered_epilogue=10 * n_batches, phased_epilogue=5 * n_batches))
+        if not all(math.isfinite(v) for v in r["full"]["losses"]):
+            raise AssertionError(f"rank {i}: non-finite losses {r['full']['losses']}")
+    if not np.array_equal(r0["runner"]["trits"], ranks[1]["runner"]["trits"]):
+        raise AssertionError("the ranks' trit fields differ")
+    if not diff.max() <= SP_SCORE_ATOL:
+        raise AssertionError(f"depth-split runner scores differ by {diff.max()} from one "
+                             f"process")
+    if not n_trits <= SP_TRIT_FRACTION * trits.size:
+        raise AssertionError(f"the depth-split runner's trits differ from main_path's at "
+                             f"{n_trits} voxels")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2543,7 +2838,8 @@ def main() -> int:
     ce_launches = config_path_phase("conv_epi", vol, trits, CE_VOLUMES, CE_LAUNCHES,
                                     conv_epi=True)
     train_parity_phase()
-    train_launches, bare_step_s, train_batch, train_draws = train_path_phase(vol, lumen)
+    train_launches, bare_step_s, train_batch, train_draws, train_peak_gb = \
+        train_path_phase(vol, lumen)
     remat_phase(train_batch, train_draws)
     del train_batch, train_draws
     engine_path_phase(vol, lumen, branch)
@@ -2552,6 +2848,7 @@ def main() -> int:
     curriculum_path_phase(vol, lumen, branch, bare_step_s)
     tree_parsing_phase(lumen)
     data_parallel_path_phase(vol, lumen, branch, trits, bare_step_s)
+    space_path_phase(vol, lumen, trits, bare_step_s, train_peak_gb)
     # each kernel's launches from the path that runs it
     launches = {**{k: main_launches[k] for k in EPILOGUE_TABLES},
                 **{k: train_launches[k] for k in ("phased_normalize", "max_pool_s2d_bwd")},

@@ -24,9 +24,12 @@
 // order). The products are written __fmul_rn/__fsub_rn so nvcc does not
 // contract them into an FMA the plain version does not have.
 //
-// The phased form reads the conv's UNGATHERED (n+1)^3 output: sub-position
-// q = (a, b, c) of output voxel (z, y, x) comes from y_ext[z+a, y+b, x+c]
-// in lane block q. The gathered tensor never reaches device memory.
+// The phased form reads the conv's UNGATHERED (nz+1, n+1, n+1) output:
+// sub-position q = (a, b, c) of output voxel (z, y, x) comes from
+// y_ext[z+a, y+b, x+c] in lane block q. The gathered tensor never reaches
+// device memory. Each form takes a depth extent nz beside the extent n of y
+// and x: a cube is nz = n, a depth slab of the mesh's `space` axis
+// (parallel/mesh.py) has nz = n / n_space.
 //
 // Bound: device memory. Each kernel reads one input element per output
 // element (the phased forms only their 8 shifted n^3 windows of y_ext's
@@ -108,7 +111,7 @@ __global__ void __launch_bounds__(kThreads) epilogue_kernel(
     const T* __restrict__ y, int64_t sb, int64_t sz, int64_t sy, int64_t sx,
     T* __restrict__ out, const float* __restrict__ scale8,
     const float* __restrict__ shift8, const T* __restrict__ wse, int n_gates,
-    int64_t n_rows, int n, int c8, int log2_row, int log2_tpp) {
+    int64_t n_rows, int nz, int n, int c8, int log2_row, int log2_tpp) {
   constexpr int V = VecWidth<T>::N;
   const int c = c8 >> 3;
   const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
@@ -120,7 +123,7 @@ __global__ void __launch_bounds__(kThreads) epilogue_kernel(
   const int k = j & ((1 << log2_tpp) - 1);    // vector within the phase
   const int col = p * c + k * V;              // first lane of this thread
 
-  const int64_t n3 = static_cast<int64_t>(n) * n * n;
+  const int64_t n3 = static_cast<int64_t>(nz) * n * n;
   const int64_t b = r / n3;
   const T* src;
   if (kPhased) {
@@ -176,7 +179,7 @@ __global__ void __launch_bounds__(kThreads) epilogue_kernel(
 // The tile walk, the same on host and device (ops/epilogue_s2d.py's
 // `epilogue_tiles_plain` states it for the CPU tests).
 struct Geo {
-  int n, c8, c;
+  int nz, n, c8, c;        // depth extent, y and x extent, lanes
   int log2_row, log2_tpp;  // log2 of threads per voxel row / per sub-position
   int tile;                // T: voxels per tile
   int tiles_x;             // tiles per x row (phased) or per batch entry (gathered)
@@ -198,13 +201,13 @@ __device__ __forceinline__ Tile tile_at(int t, const Geo& g) {
   if (kPhased) {
     at.y = r % g.n;
     r /= g.n;
-    at.z = r % g.n;
-    at.b = r / g.n;
+    at.z = r % g.nz;
+    at.b = r / g.nz;
     at.count = min(g.tile, g.n - at.x0);
   } else {
     at.b = r;
     at.z = at.y = 0;
-    at.count = min(g.tile, g.n * g.n * g.n - at.x0);
+    at.count = min(g.tile, g.nz * g.n * g.n - at.x0);
   }
   return at;
 }
@@ -212,8 +215,8 @@ __device__ __forceinline__ Tile tile_at(int t, const Geo& g) {
 template <bool kPhased>
 __device__ __forceinline__ int64_t out_row(const Tile& at, const Geo& g) {
   if (kPhased)
-    return ((static_cast<int64_t>(at.b) * g.n + at.z) * g.n + at.y) * g.n + at.x0;
-  return static_cast<int64_t>(at.b) * g.n * g.n * g.n + at.x0;
+    return ((static_cast<int64_t>(at.b) * g.nz + at.z) * g.n + at.y) * g.n + at.x0;
+  return static_cast<int64_t>(at.b) * g.nz * g.n * g.n + at.x0;
 }
 
 // One thread's fixed column of the voxel row.
@@ -606,7 +609,7 @@ int persistent_grid(K kernel, int smem, int n_tiles, int& grid) {
 }
 
 // The phased form through TMA: y_ext as a 5-D tensor map (8C, xw, n+1,
-// n+1, B) with its strides, a box (2C lanes, T+1 voxels).
+// nz+1, B) with its strides, a box (2C lanes, T+1 voxels).
 template <typename T, bool kActivate>
 int launch_tma(const void* y, int64_t sb, int64_t sz, int64_t sy, int64_t sx, int xw,
                int64_t batch, const Geo& g, T* out, const float* scale8, const float* shift8,
@@ -616,7 +619,7 @@ int launch_tma(const void* y, int64_t sb, int64_t sz, int64_t sy, int64_t sx, in
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const Ring ring = ring_of(elt, g.c8, g.tile);
   const cuuint64_t dims[5] = {static_cast<cuuint64_t>(g.c8), static_cast<cuuint64_t>(xw),
-                              static_cast<cuuint64_t>(g.n + 1), static_cast<cuuint64_t>(g.n + 1),
+                              static_cast<cuuint64_t>(g.n + 1), static_cast<cuuint64_t>(g.nz + 1),
                               static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[4] = {static_cast<cuuint64_t>(sx * elt), static_cast<cuuint64_t>(sy * elt),
                                  static_cast<cuuint64_t>(sz * elt), static_cast<cuuint64_t>(sb * elt)};
@@ -641,24 +644,25 @@ int launch_tma(const void* y, int64_t sb, int64_t sz, int64_t sy, int64_t sx, in
 template <typename T, bool kPhased, bool kActivate = true>
 int launch(int design, const void* y, int64_t sb, int64_t sz, int64_t sy, int64_t sx, int xw,
            void* out, const float* scale8, const float* shift8, const void* wse, int n_gates,
-           int64_t batch, int n, int c8, cudaStream_t stream) {
+           int64_t batch, int nz, int n, int c8, cudaStream_t stream) {
   constexpr int V = VecWidth<T>::N;
   constexpr int elt = static_cast<int>(sizeof(T));
   const int log2_row = ilog2_exact(c8 / V);
   const int log2_tpp = ilog2_exact(c8 / 8 / V);
   if (c8 % (8 * V) || log2_row < 0 || log2_tpp < 0 || (c8 / V) > kThreads ||
-      (c8 / 8 / V) > 32 || n_gates < 0 || n_gates > kMaxGates || n < 1 || batch < 1)
+      (c8 / 8 / V) > 32 || n_gates < 0 || n_gates > kMaxGates || n < 1 || nz < 1 || batch < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t n3 = static_cast<int64_t>(n) * n * n;
+  const int64_t n3 = static_cast<int64_t>(nz) * n * n;
   if (design == kPerVoxel) {
     const int64_t threads = (batch * n3) << log2_row;
     const int64_t blocks = (threads + kThreads - 1) / kThreads;
     epilogue_kernel<T, kPhased, kActivate><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
         static_cast<const T*>(y), sb, sz, sy, sx, static_cast<T*>(out), scale8, shift8,
-        static_cast<const T*>(wse), n_gates, batch * n3, n, c8, log2_row, log2_tpp);
+        static_cast<const T*>(wse), n_gates, batch * n3, nz, n, c8, log2_row, log2_tpp);
     return static_cast<int>(cudaGetLastError());
   }
   Geo g;
+  g.nz = nz;
   g.n = n;
   g.c8 = c8;
   g.c = c8 / 8;
@@ -666,7 +670,7 @@ int launch(int design, const void* y, int64_t sb, int64_t sz, int64_t sy, int64_
   g.log2_tpp = log2_tpp;
   g.tile = tile_voxels(c8 * elt, kPhased);
   g.tiles_x = static_cast<int>(((kPhased ? n : n3) + g.tile - 1) / g.tile);
-  const int64_t n_tiles = batch * (kPhased ? static_cast<int64_t>(n) * n : 1) * g.tiles_x;
+  const int64_t n_tiles = batch * (kPhased ? static_cast<int64_t>(nz) * n : 1) * g.tiles_x;
   if (n_tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   g.n_tiles = static_cast<int>(n_tiles);
   g.sb = sb;
@@ -695,34 +699,35 @@ int launch(int design, const void* y, int64_t sb, int64_t sz, int64_t sy, int64_
 
 // dtype: 0 = float32, 1 = bfloat16; design: 0 per-voxel, 1 persistent
 // 16-byte loads, 2 persistent TMA (phased forms only). Returns a
-// cudaError_t value.
+// cudaError_t value. y is (B, nz, n, n, 8C), contiguous.
 extern "C" int airseg_gathered_epilogue(int dtype, int design, const void* y, void* out,
                                         const float* scale8, const float* shift8,
                                         const void* wse, int n_gates, long long batch,
-                                        int n, int c8, void* stream) {
+                                        int nz, int n, int c8, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float, false>(design, y, 0, 0, 0, 0, 0, out, scale8, shift8, wse, n_gates,
-                                batch, n, c8, s);
+                                batch, nz, n, c8, s);
   if (dtype == 1)
     return launch<__nv_bfloat16, false>(design, y, 0, 0, 0, 0, 0, out, scale8, shift8, wse,
-                                        n_gates, batch, n, c8, s);
+                                        n_gates, batch, nz, n, c8, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// y_ext is (B, n+1, n+1, xw, 8C) with element strides sb, sz, sy, sx.
+// y_ext is (B, nz+1, n+1, xw, 8C) with element strides sb, sz, sy, sx; out
+// is (B, nz, n, n, 8C).
 extern "C" int airseg_phased_epilogue(int dtype, int design, const void* y_ext, long long sb,
                                       long long sz, long long sy, long long sx, int xw,
                                       void* out, const float* scale8, const float* shift8,
                                       const void* wse, int n_gates, long long batch,
-                                      int n, int c8, void* stream) {
+                                      int nz, int n, int c8, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float, true>(design, y_ext, sb, sz, sy, sx, xw, out, scale8, shift8, wse,
-                               n_gates, batch, n, c8, s);
+                               n_gates, batch, nz, n, c8, s);
   if (dtype == 1)
     return launch<__nv_bfloat16, true>(design, y_ext, sb, sz, sy, sx, xw, out, scale8, shift8,
-                                       wse, n_gates, batch, n, c8, s);
+                                       wse, n_gates, batch, nz, n, c8, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -731,14 +736,14 @@ extern "C" int airseg_phased_epilogue(int dtype, int design, const void* y_ext, 
 extern "C" int airseg_phased_normalize(int dtype, int design, const void* y_ext, long long sb,
                                        long long sz, long long sy, long long sx, int xw,
                                        void* out, const float* scale8, const float* shift8,
-                                       long long batch, int n, int c8, void* stream) {
+                                       long long batch, int nz, int n, int c8, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float, true, false>(design, y_ext, sb, sz, sy, sx, xw, out, scale8, shift8,
-                                      nullptr, 0, batch, n, c8, s);
+                                      nullptr, 0, batch, nz, n, c8, s);
   if (dtype == 1)
     return launch<__nv_bfloat16, true, false>(design, y_ext, sb, sz, sy, sx, xw, out, scale8,
-                                              shift8, nullptr, 0, batch, n, c8, s);
+                                              shift8, nullptr, 0, batch, nz, n, c8, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

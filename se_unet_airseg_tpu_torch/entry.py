@@ -7,6 +7,7 @@ of the JAX repository's `__graft_entry__.entry()` and
     fn, args = entry()
     print(fn(*args).shape)   # torch.Size([1, 128, 128, 128])
     dryrun_multichip(2)      # 2 ranks over gloo: loss and max |diff|
+    dryrun_multichip(4)      # 4 ranks, a (2 data, 2 space) mesh
 """
 
 from __future__ import annotations
@@ -41,9 +42,10 @@ def entry(device=None):
 def _dryrun(mesh, n: int, device=None):
     """The dry run on one rank of `mesh`, or with `mesh=None` in one
     process on `device`: a float32 stage-3 step (AdamW) on the global
-    batch of 2n crops of 16^3, then the runner (cube 32, step 16, batch n)
-    over a 48x32x32 volume, from seeded weights. Returns (loss, the
-    stepped parameters on the CPU, the score volume)."""
+    batch of 2n crops of 16^3 (depth split over the mesh's space ranks,
+    if more than one), then the runner (cube 32, step 16, batch n) over a
+    48x32x32 volume, from seeded weights. Returns (loss, the stepped
+    parameters on the CPU, the score volume)."""
     from .infer.sliding_window import SlidingWindowRunner
     from .train.step import create_train_state, make_optimizer, make_train_step
 
@@ -60,7 +62,8 @@ def _dryrun(mesh, n: int, device=None):
              "skel": (rng.random((b, s, s, s)) > 0.9).astype(np.float32)}
     if mesh is None:
         batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-    step = make_train_step(cfg, stage=3, mesh=mesh)
+    step = make_train_step(cfg, stage=3, mesh=mesh,
+                           shard_space=mesh is not None and mesh.space_size > 1)
     state, aux = step(state, batch, torch.Generator(device=dev).manual_seed(1))
     vol = (np.random.default_rng(1).random((48, 32, 32)) * 1000 - 900).astype(np.float32)
     runner = SlidingWindowRunner(params, cfg, cube=32, step=16, batch=n, mesh=mesh, device=dev)
@@ -69,24 +72,30 @@ def _dryrun(mesh, n: int, device=None):
 
 
 def dryrun_multichip(n_ranks: int, device=None) -> dict:
-    """A sharded stage-3 step and the sharded runner on `n_ranks` ranks of
-    the mesh's `data` axis (spawned over gloo, each on `device`: default
-    the card, rank r on cuda:r modulo the cards; "cpu" for the CPU),
-    against the same in one process. Prints the loss and the max |diff|
-    of the parameters and of the scores, and returns them."""
+    """A sharded stage-3 step and the sharded runner on `n_ranks` ranks
+    (spawned over gloo, each on `device`: default the card, rank r on
+    cuda:r modulo the cards; "cpu" for the CPU), against the same in one
+    process. As the JAX package's (`__graft_entry__.py:57-67`) the mesh
+    is (n_ranks / 2) x 2 with the step's and the runner's depth split
+    over `space` when n_ranks is even and at least 4, else n_ranks x 1.
+    Prints the loss and the max |diff| of the parameters and of the
+    scores, and returns them."""
     from .parallel.mesh import spawn
 
     dev = resolve_device(device)
+    n_space = 2 if n_ranks >= 4 and n_ranks % 2 == 0 else 1
     devices = [str(dev)] * n_ranks if dev.type != "cuda" else [
         f"cuda:{r % torch.cuda.device_count()}" for r in range(n_ranks)]
-    ranks = spawn(_dryrun, n_ranks, n_ranks, devices=devices)
+    ranks = spawn(_dryrun, n_ranks, n_ranks, devices=devices, n_space=n_space)
     loss1, params1, vol1 = _dryrun(None, n_ranks, dev)
     loss, params, vol = ranks[0]
-    out = {"ranks": n_ranks, "loss": loss, "loss_one_process": loss1,
+    out = {"ranks": n_ranks, "mesh": [n_ranks // n_space, n_space], "loss": loss,
+           "loss_one_process": loss1,
            "param_max_abs_diff": max(float((a - b).abs().max()) for a, b in zip(params, params1)),
            "score_max_abs_diff": float(np.abs(vol - vol1).max()),
            "ranks_equal": all(torch.equal(a, b) for r in ranks[1:] for a, b in zip(params, r[1]))}
-    print(f"dryrun_multichip({n_ranks}): data mesh ({n_ranks}x1) on {devices[0]}, "
+    print(f"dryrun_multichip({n_ranks}): (data, space) mesh ({n_ranks // n_space}x{n_space}) "
+          f"on {devices[0]}, "
           f"loss={loss:.6f} (one process {loss1:.6f}), max|dparam|="
           f"{out['param_max_abs_diff']:.3e}, max|dscore|={out['score_max_abs_diff']:.3e}, "
           f"ranks equal: {out['ranks_equal']}")

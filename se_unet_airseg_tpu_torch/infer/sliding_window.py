@@ -23,11 +23,13 @@ drivers run it) DropLayer draws its uniforms per tile batch, from a
 `torch.Generator` or from `drop_draws`, one `[r_en, r_de]` per batch.
 
 Under a mesh (`parallel.make_mesh`; JAX `sliding_window.py:165-193,
-277-282`) every rank runs its batch/n tiles of each tile batch on the
-per-tile route, the tiles' scores are gathered in tile order, and every
-rank accumulates all of them in the same order: the volume is returned on
-every rank. In train mode each rank draws the batch's global uniforms and
-uses its rows of them.
+277-282`) every data row runs its batch/n_data tiles of each tile batch
+on the per-tile route, and with n_space > 1 every space rank of the row
+its depth slab of them (`apply_fast(..., space=mesh)`); the slabs are
+gathered over space, then the tiles' scores over data in tile order, and
+every rank accumulates all of them in the same order: the volume is
+returned on every rank. In train mode each rank draws the batch's global
+uniforms and uses its rows of them.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ from ..models.se_unet import (
     prepare_fast_params,
 )
 from ..ops import hu_dual_window
-from ..parallel.mesh import all_gather_rows, check_mesh
+from ..parallel.mesh import all_gather_rows, all_gather_slabs, check_mesh
 from ..utils.devices import resolve_device
 
 
@@ -143,8 +145,9 @@ class SlidingWindowRunner:
     `train_mode`: DropLayer on, as the reference's validation and test run
     the net; the predict methods then need `generator=` or `drop_draws=`.
     `fast=False` runs the reference-layout `apply` on the per-tile route.
-    `mesh` (a `parallel.DataMesh`) splits every tile batch over the ranks:
-    `batch` must be a multiple of their number, and the default device is
+    `mesh` (a `parallel.DataMesh`) splits every tile batch over its data
+    rows and each tile's depth over its space ranks: `batch` must be a
+    multiple of n_data, `cube` of 8 x n_space, and the default device is
     the rank's."""
 
     def __init__(self, params, cfg: SEUNetConfig = SEUNetConfig(), *,
@@ -152,8 +155,13 @@ class SlidingWindowRunner:
                  head: str = "decoder", use_sigmoid: bool = True,
                  train_mode: bool = False, fast: bool = True, mesh=None, device=None):
         check_mesh(mesh)
-        if mesh is not None and batch % mesh.size:
-            raise ValueError(f"batch {batch} must be a multiple of the mesh's {mesh.size} ranks")
+        if mesh is not None and batch % mesh.data_size:
+            raise ValueError(f"batch {batch} must be a multiple of the mesh's {mesh.data_size} "
+                             f"data rows")
+        if mesh is not None and cube % (8 * mesh.space_size):
+            raise ValueError(f"cube {cube} must be a multiple of 8 x the mesh's "
+                             f"{mesh.space_size} space ranks")
+        self.space = mesh if mesh is not None and mesh.space_size > 1 else None
         self.mesh = mesh
         self.device = resolve_device(device, mesh)
         self.cfg = cfg
@@ -195,26 +203,28 @@ class SlidingWindowRunner:
         train-mode arguments for this batch (empty in eval mode)."""
         if self.fast:
             outs = apply_fast(self.params, tiles, cfg=self.cfg, fast_params=self.fast_params,
-                              **train, **kw)
+                              space=self.space, **train, **kw)
         else:
-            outs = se_unet_apply(self.params, tiles, cfg=self.cfg, **train)
+            outs = se_unet_apply(self.params, tiles, cfg=self.cfg, space=self.space, **train)
         p = outs[self.head_idx].to(torch.float32)
         return torch.sigmoid(p) if self.use_sigmoid else p
 
     def _step(self, vol, pred, positions, shift: float, draws):
         """One tile batch on the full-resolution volume; under a mesh this
-        rank's tiles of it, the scores of all gathered."""
+        rank's tiles of it (their depth slab over space), the scores of all
+        gathered."""
         c = self.cube
-        mine = positions
+        mine, depth = positions, slice(0, c)
         if self.mesh is not None:
             rows = self.mesh.rows(len(positions))
-            mine = positions[rows]
+            mine, depth = positions[rows], self.mesh.slab(c)
             if draws:
                 draws = self._rank_draws(draws, len(positions), rows)
-        raw = torch.stack([vol[x : x + c, y : y + c, z : z + c] for x, y, z in mine])
+        raw = torch.stack([vol[x + depth.start : x + depth.stop, y : y + c, z : z + c]
+                           for x, y, z in mine])
         p = self._forward(hu_dual_window(raw.to(torch.float32) + shift), draws)[..., 0]
         if self.mesh is not None:
-            p = all_gather_rows(p, self.mesh)
+            p = all_gather_rows(all_gather_slabs(p, self.mesh), self.mesh)
         # tiles within a batch may overlap: sequential add per tile
         for i, (x, y, z) in enumerate(positions):
             pred[x : x + c, y : y + c, z : z + c] += p[i]

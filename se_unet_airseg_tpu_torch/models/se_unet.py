@@ -34,6 +34,16 @@ Two forwards over one parameter tree (DHWIO weights, NDHWC tensors):
 `SEUNet` is the `nn.Module` holding the parameters under the reference
 state_dict names.
 
+With `space=` (a `parallel.DataMesh` whose `space` axis splits the depth;
+default configuration only) both forwards run on this rank's depth slab of
+each crop and return its slab of the heads: every conv takes its depth
+padding from the neighbouring slabs (`parallel.halo`: one s2d plane for
+the lifted, grouped dil-2 and phased s2d convs, `dilation` planes for the
+reference-layout convs, none for the 1x1x1 convs), every InstanceNorm adds
+its statistics over the slabs (`parallel.space_sum`), and the upsamples
+take their slab's rows of the whole crop's matrix. Pools, space-to-depth,
+the SE gates and DropLayer stay inside a slab.
+
 Train mode (`train=True`) applies DropLayer, the reference's channel
 dropout, to the concatenated side outputs in front of each head. Its
 uniform draws, (B, 12*side) for the encoder head and (B, 6*side) for the
@@ -244,21 +254,43 @@ def cast_params(params: Params, dtype: torch.dtype) -> Params:
 
 
 def _sse_block(p: Params, x, *, dilation: int, up: int, n_gates: int,
-               want_side: bool = True):
+               want_side: bool = True, space=None):
     """Conv3 -> IN -> LeakyReLU -> SE gate(s) -> (features, side@full-res)."""
     e = conv3d(x, p["conv"]["w"], p["conv"]["b"], padding=dilation,
-               dilation=dilation)
-    e = leaky_relu(instance_norm(e))
+               dilation=dilation, space=space)
+    e = leaky_relu(instance_norm(e, space=space))
     for g in range(n_gates):
         e = e * torch.sigmoid(conv3d(e, p[f"se{g}"]["w"]))
     if not want_side:
         return e, None
     side = conv3d(e, p["side"]["w"], p["side"]["b"])
-    return e, upsample_trilinear(side, up)
+    return e, upsample_trilinear(side, up, space=space)
 
 
-def _cat_block(p: Params, x):
-    return leaky_relu(instance_norm(conv3d(x, p["conv"]["w"])))
+def _cat_block(p: Params, x, space=None):
+    return leaky_relu(instance_norm(conv3d(x, p["conv"]["w"]), space=space))
+
+
+def _check_space(x, cfg: SEUNetConfig, space, x_is_s2d: bool = False) -> None:
+    """Raise for what a forward cannot take on the depth slab x of a
+    `space` mesh: the conv_stats and conv_epi configurations, whose
+    kernels (K8-K11) pad the depth inside the kernel and would count the
+    halo's output planes in their fused sums (ROADMAP M9b); or a crop
+    depth that is not a multiple of 8 x n_space, or that leaves a slab
+    fewer than 2 planes at the 1/4 level (its dil-2 convs' halo)."""
+    if space is None:
+        return
+    if cfg.conv_stats or cfg.conv_epi:
+        raise NotImplementedError(
+            "SEUNetConfig(conv_stats=True) and (conv_epi=True) take no depth slab of the "
+            "`space` axis: their kernels pad the depth inside the kernel and their fused sums "
+            "would count the halo's output planes (ROADMAP M9b)")
+    n = space.space_size
+    depth = x.shape[1] * (2 if x_is_s2d else 1) * n
+    if depth % (8 * n) or depth // (4 * n) < 2:
+        raise ValueError(f"a crop depth of {depth} does not split over {n} space ranks: it "
+                         f"must be a multiple of {8 * n} (8 x n_space), at least 2 planes a "
+                         f"slab at the 1/4 level")
 
 
 def _remat(f, cfg: SEUNetConfig):
@@ -309,11 +341,14 @@ def _drop_layer(x, r, threshold: float, rows=None):
 
 def apply(params: Params, x: torch.Tensor, *, cfg: SEUNetConfig = SEUNetConfig(),
           train: bool = False, generator: torch.Generator | None = None,
-          drop_draws=None, drop_rows: slice | None = None):
+          drop_draws=None, drop_rows: slice | None = None, space=None):
     """Forward on NDHWC input (B, D, H, W, in_channels) in the reference
     layout. Returns the raw-logit heads (pred_en, pred_de). `train`
     applies DropLayer with draws from `generator` or `drop_draws`;
-    `drop_rows`: x's rows within the batch that `drop_draws` covers."""
+    `drop_rows`: x's rows within the batch that `drop_draws` covers.
+    `space`: x is this rank's depth slab (`_check_space`), and the heads
+    are its slab."""
+    _check_space(x, cfg, space)
     p = cast_params(params, cfg.compute_dtype)
     x = x.to(cfg.compute_dtype)
     _sse_block = _remat(globals()["_sse_block"], cfg)
@@ -322,44 +357,44 @@ def apply(params: Params, x: torch.Tensor, *, cfg: SEUNetConfig = SEUNetConfig()
     def cat(*ts):
         return torch.cat(ts, dim=-1)
 
-    e0, s0 = _sse_block(p["ec1"], x, dilation=1, up=1, n_gates=1)
-    e1, s1 = _sse_block(p["ec2"], e0, dilation=1, up=1, n_gates=1)
-    e1_1, s2 = _sse_block(p["ec3"], e1, dilation=2, up=1, n_gates=1)
-    e1 = _cat_block(p["ec33"], cat(e1_1, e0, e1)) + _cat_block(p["x33"], x)
+    e0, s0 = _sse_block(p["ec1"], x, dilation=1, up=1, n_gates=1, space=space)
+    e1, s1 = _sse_block(p["ec2"], e0, dilation=1, up=1, n_gates=1, space=space)
+    e1_1, s2 = _sse_block(p["ec3"], e1, dilation=2, up=1, n_gates=1, space=space)
+    e1 = _cat_block(p["ec33"], cat(e1_1, e0, e1), space) + _cat_block(p["x33"], x, space)
     e2 = max_pool3d(e1)
     x = max_pool3d(x)
 
-    e2, s3 = _sse_block(p["ec4"], e2, dilation=1, up=2, n_gates=2)
-    e3, s4 = _sse_block(p["ec5"], e2, dilation=2, up=2, n_gates=2)
-    e3_1, s5 = _sse_block(p["ec6"], e3, dilation=2, up=2, n_gates=2)
-    e3 = _cat_block(p["ec63"], cat(e3_1, e2, e3)) + _cat_block(p["x63"], x)
+    e2, s3 = _sse_block(p["ec4"], e2, dilation=1, up=2, n_gates=2, space=space)
+    e3, s4 = _sse_block(p["ec5"], e2, dilation=2, up=2, n_gates=2, space=space)
+    e3_1, s5 = _sse_block(p["ec6"], e3, dilation=2, up=2, n_gates=2, space=space)
+    e3 = _cat_block(p["ec63"], cat(e3_1, e2, e3), space) + _cat_block(p["x63"], x, space)
     e4 = max_pool3d(e3)
     x = max_pool3d(x)
 
-    e4, s6 = _sse_block(p["ec7"], e4, dilation=1, up=4, n_gates=2)
-    e5, s7 = _sse_block(p["ec8"], e4, dilation=2, up=4, n_gates=2)
-    e5_1, s8 = _sse_block(p["ec9"], e5, dilation=2, up=4, n_gates=2)
-    e5 = _cat_block(p["ec93"], cat(e5_1, e4, e5)) + _cat_block(p["x93"], x)
+    e4, s6 = _sse_block(p["ec7"], e4, dilation=1, up=4, n_gates=2, space=space)
+    e5, s7 = _sse_block(p["ec8"], e4, dilation=2, up=4, n_gates=2, space=space)
+    e5_1, s8 = _sse_block(p["ec9"], e5, dilation=2, up=4, n_gates=2, space=space)
+    e5 = _cat_block(p["ec93"], cat(e5_1, e4, e5), space) + _cat_block(p["x93"], x, space)
     e6 = max_pool3d(e5)
 
-    e6, s9 = _sse_block(p["ec10"], e6, dilation=1, up=8, n_gates=2)
-    e7, s10 = _sse_block(p["ec11"], e6, dilation=1, up=8, n_gates=2)
-    e7_1, s11 = _sse_block(p["ec12"], e7, dilation=1, up=8, n_gates=2)
-    e7 = _cat_block(p["ec123"], cat(e7_1, e6, e7))
+    e6, s9 = _sse_block(p["ec10"], e6, dilation=1, up=8, n_gates=2, space=space)
+    e7, s10 = _sse_block(p["ec11"], e6, dilation=1, up=8, n_gates=2, space=space)
+    e7_1, s11 = _sse_block(p["ec12"], e7, dilation=1, up=8, n_gates=2, space=space)
+    e7 = _cat_block(p["ec123"], cat(e7_1, e6, e7), space)
 
-    e8 = upsample_trilinear(e7, 2)
-    d0, s12 = _sse_block(p["dc1"], cat(e8, e5), dilation=1, up=4, n_gates=2)
-    d0_1, s13 = _sse_block(p["dc2"], d0, dilation=1, up=4, n_gates=2)
-    d0 = _cat_block(p["dc22"], cat(d0_1, d0))
+    e8 = upsample_trilinear(e7, 2, space=space)
+    d0, s12 = _sse_block(p["dc1"], cat(e8, e5), dilation=1, up=4, n_gates=2, space=space)
+    d0_1, s13 = _sse_block(p["dc2"], d0, dilation=1, up=4, n_gates=2, space=space)
+    d0 = _cat_block(p["dc22"], cat(d0_1, d0), space)
 
-    d1 = upsample_trilinear(d0, 2)
-    d1, s14 = _sse_block(p["dc3"], cat(d1, e3), dilation=1, up=2, n_gates=2)
-    d1_1, s15 = _sse_block(p["dc4"], d1, dilation=1, up=2, n_gates=2)
-    d1 = _cat_block(p["dc42"], cat(d1_1, d1))
+    d1 = upsample_trilinear(d0, 2, space=space)
+    d1, s14 = _sse_block(p["dc3"], cat(d1, e3), dilation=1, up=2, n_gates=2, space=space)
+    d1_1, s15 = _sse_block(p["dc4"], d1, dilation=1, up=2, n_gates=2, space=space)
+    d1 = _cat_block(p["dc42"], cat(d1_1, d1), space)
 
-    d2 = upsample_trilinear(d1, 2)
-    d2, s16 = _sse_block(p["dc5"], cat(d2, e1), dilation=1, up=1, n_gates=1)
-    _, s17 = _sse_block(p["dc6"], d2, dilation=1, up=1, n_gates=1)
+    d2 = upsample_trilinear(d1, 2, space=space)
+    d2, s16 = _sse_block(p["dc5"], cat(d2, e1), dilation=1, up=1, n_gates=1, space=space)
+    _, s17 = _sse_block(p["dc6"], d2, dilation=1, up=1, n_gates=1, space=space)
     # dc62's output feeds nothing in the reference forward
 
     sides_en = cat(s0, s1, s2, s3, s4, s5, s6, s7, s8, s9, s10, s11)
@@ -442,10 +477,11 @@ def prepare_fast_params(params: Params, cfg: SEUNetConfig,
     return fp
 
 
-def _sse_block_s2d(pre: Params, x):
+def _sse_block_s2d(pre: Params, x, space=None):
     """SSEConv (one gate) on an s2d tensor via the block-lifted dense 3^3
     conv (ec1/ec2), then the gathered epilogue."""
-    return gated_norm_block(conv3d(x, pre["w"], pre["b"], padding=1), pre["wse"])
+    return gated_norm_block(conv3d(x, pre["w"], pre["b"], padding=1, space=space), pre["wse"],
+                            space=space)
 
 
 def _norm_gates(y, s1, s2, wse):
@@ -458,7 +494,8 @@ def _norm_gates(y, s1, s2, wse):
     return e
 
 
-def _sse_block_s2d_dil2(pre: Params, x, conv_stats: bool = False, conv_epi: bool = False):
+def _sse_block_s2d_dil2(pre: Params, x, conv_stats: bool = False, conv_epi: bool = False,
+                        space=None):
     """Dilation-2 SSEConv on an s2d tensor: the 8 sub-grid dil-1 convs as
     one grouped conv (partial-dense lift), then the gathered epilogue; or,
     under `conv_stats`, the fused conv + statistics kernel; or, under
@@ -468,11 +505,12 @@ def _sse_block_s2d_dil2(pre: Params, x, conv_stats: bool = False, conv_epi: bool
         return _norm_gates(*dil2_conv_stats(x, pre["w"], pre["b"]), pre["wse"])
     if conv_epi:
         return dil2_gated_block(x, pre["wdense"], pre["bg"], pre["wse"])
-    y = conv3d(x, pre["wgroup"], pre["bg"], padding=1, groups=pre["ng"])
-    return gated_norm_block(y, pre["wse"])
+    y = conv3d(x, pre["wgroup"], pre["bg"], padding=1, groups=pre["ng"], space=space)
+    return gated_norm_block(y, pre["wse"], space=space)
 
 
-def _sse_block_s2d_phased(pre: Params, x, conv_stats: bool = False, conv_epi: bool = False):
+def _sse_block_s2d_phased(pre: Params, x, conv_stats: bool = False, conv_epi: bool = False,
+                          space=None):
     """SSEConv on an s2d tensor (or a list forming a plain concat) via
     the phased conv (under `conv_epi` the ungathered conv kernel), then
     the phased epilogue; or, under `conv_stats`, the fused conv +
@@ -482,19 +520,20 @@ def _sse_block_s2d_phased(pre: Params, x, conv_stats: bool = False, conv_epi: bo
         w_all = pre["w_all"]
         y, s1, s2 = phased_conv_stats(xs, w_all.reshape(8, *w_all.shape[3:]), pre["b_all"])
         return _norm_gates(y, s1, s2, pre["wse"])
-    return phased_gated_block(xs, pre["w_all"], pre["b_all"], pre["wse"], ext_kernel=conv_epi)
+    return phased_gated_block(xs, pre["w_all"], pre["b_all"], pre["wse"], ext_kernel=conv_epi,
+                              space=space)
 
 
-def _cat_block_s2d(pre: Params, x):
+def _cat_block_s2d(pre: Params, x, space=None):
     """CATConv on an s2d tensor or a list forming a plain concat: the
     interleave permutation is folded into the pointwise weight; gate-free
     gathered epilogue."""
     xs = list(x) if isinstance(x, (list, tuple)) else [x]
-    return gated_norm_block(grouped_pointwise_multi_pre(xs, pre["wd"]), None)
+    return gated_norm_block(grouped_pointwise_multi_pre(xs, pre["wd"]), None, space=space)
 
 
 def _composed_head(metas, head_p: Params, interp=None, s2d_out: bool = False,
-                   drop=None):
+                   drop=None, space=None):
     """Deep-supervision head without materializing the side outputs:
     conv1x1(DropLayer(cat(upsample(side_i)))) is linear, and
     align_corners interpolation rows sum to 1, so it folds into
@@ -507,7 +546,8 @@ def _composed_head(metas, head_p: Params, interp=None, s2d_out: bool = False,
     s2d feature at the output grid, 's2d_up' an s2d feature at a coarser
     grid, 'std' a plain (B, m, m, m, Ci) feature; the last two upsample
     by `scale`. Returns (B, 2n, 2n, 2n, 1) logits, or the s2d
-    (B, n, n, n, 8) form when `s2d_out`."""
+    (B, n, n, n, 8) form when `s2d_out`; with `space`, this rank's depth
+    slab of them."""
     f32 = torch.float32
     hw = head_p["w"][0, 0, 0, :, 0].to(f32)
     batch = metas[0][0].shape[0]
@@ -553,9 +593,9 @@ def _composed_head(metas, head_p: Params, interp=None, s2d_out: bool = False,
             contrib = (feat @ w1.to(feat.dtype)).unsqueeze(-1).to(f32)
         per_scale[sc] = contrib if sc not in per_scale else per_scale[sc] + contrib
     for sc, acc in per_scale.items():
-        m = acc.shape[1]
+        m = acc.shape[2]
         pair = interp.get((m, m * sc)) if interp else None
-        up = upsample_to_s2d(acc, sc, pair=pair)
+        up = upsample_to_s2d(acc, sc, pair=pair, space=space)
         total = up if total is None else total + up
     bias = bias.reshape(-1, 1, 1, 1, 1)
     if s2d_out:
@@ -567,7 +607,7 @@ def apply_fast(params: Params, x: torch.Tensor, *,
                cfg: SEUNetConfig = SEUNetConfig(), train: bool = False,
                generator: torch.Generator | None = None, drop_draws=None,
                drop_rows: slice | None = None, fast_params: Params | None = None,
-               x_is_s2d: bool = False, heads_s2d: bool = False):
+               x_is_s2d: bool = False, heads_s2d: bool = False, space=None):
     """Fast forward; same contract as `apply` (D, H, W divisible by 8).
 
     `x_is_s2d`: the input is already the s2d entry tensor
@@ -576,9 +616,12 @@ def apply_fast(params: Params, x: torch.Tensor, *,
     changes values. `fast_params`: `prepare_fast_params(params, cfg)`,
     computed here when None (in the autograd graph, as training needs).
     `train`: DropLayer with draws from `generator` or `drop_draws`;
-    `drop_rows`: x's rows within the batch that `drop_draws` covers."""
+    `drop_rows`: x's rows within the batch that `drop_draws` covers.
+    `space`: x is this rank's depth slab (`_check_space`), and the heads
+    are its slab."""
+    _check_space(x, cfg, space, x_is_s2d)
     _sse_block_s2d = _remat(globals()["_sse_block_s2d"], cfg)
-    modes = dict(conv_stats=cfg.conv_stats, conv_epi=cfg.conv_epi)
+    modes = dict(conv_stats=cfg.conv_stats, conv_epi=cfg.conv_epi, space=space)
     # the default phased block, and both blocks under conv_epi, are
     # Functions that save their inputs only: checkpointing them would add a
     # forward replay that nothing reads
@@ -602,11 +645,12 @@ def apply_fast(params: Params, x: torch.Tensor, *,
 
     # ---- encoder level 1 (s2d at the full-resolution grid) ----
     xs = x if x_is_s2d else space_to_depth(x)
-    e0 = _sse_block_s2d(fp["ec1"], xs)
-    e1 = _sse_block_s2d(fp["ec2"], e0)
+    e0 = _sse_block_s2d(fp["ec1"], xs, space)
+    e1 = _sse_block_s2d(fp["ec2"], e0, space)
     e1_1 = _sse_block_s2d_dil2(fp["ec3"], e1)
     f0, f1, f2 = e0, e1, e1_1
-    e1 = _cat_block_s2d(fp["ec33"], [e1_1, e0, e1]) + _cat_block_s2d(fp["x33"], xs)
+    e1 = (_cat_block_s2d(fp["ec33"], [e1_1, e0, e1], space)
+          + _cat_block_s2d(fp["x33"], xs, space))
     # ---- encoder level 2 (s2d at the 1/2 grid) ----
     e2s = space_to_depth(max_pool_s2d(e1))
     x2s = space_to_depth(max_pool_s2d(xs))
@@ -614,46 +658,46 @@ def apply_fast(params: Params, x: torch.Tensor, *,
     e3s = _sse_block_s2d_dil2(fp["ec5"], e2s)
     e3_1s = _sse_block_s2d_dil2(fp["ec6"], e3s)
     f3, f4, f5 = e2s, e3s, e3_1s
-    e3s = (_cat_block_s2d(fp["ec63"], [e3_1s, e2s, e3s])
-           + _cat_block_s2d(fp["x63"], x2s))
+    e3s = (_cat_block_s2d(fp["ec63"], [e3_1s, e2s, e3s], space)
+           + _cat_block_s2d(fp["x63"], x2s, space))
     e4 = max_pool_s2d(e3s)
     x3 = max_pool_s2d(x2s)
 
     # ---- encoder level 3 (1/4) ----
-    e4, _ = _sse_block(p["ec7"], e4, dilation=1, up=1, n_gates=2, want_side=False)
-    e5, _ = _sse_block(p["ec8"], e4, dilation=2, up=1, n_gates=2, want_side=False)
-    e5_1, _ = _sse_block(p["ec9"], e5, dilation=2, up=1, n_gates=2, want_side=False)
+    std = dict(up=1, n_gates=2, want_side=False, space=space)
+    e4, _ = _sse_block(p["ec7"], e4, dilation=1, **std)
+    e5, _ = _sse_block(p["ec8"], e4, dilation=2, **std)
+    e5_1, _ = _sse_block(p["ec9"], e5, dilation=2, **std)
     f6, f7, f8 = e4, e5, e5_1
-    e5 = _cat_block(p["ec93"], cat(e5_1, e4, e5)) + _cat_block(p["x93"], x3)
+    e5 = _cat_block(p["ec93"], cat(e5_1, e4, e5), space) + _cat_block(p["x93"], x3, space)
     e6 = max_pool3d(e5)
 
     # ---- bottleneck (1/8) ----
-    e6, _ = _sse_block(p["ec10"], e6, dilation=1, up=1, n_gates=2, want_side=False)
-    e7, _ = _sse_block(p["ec11"], e6, dilation=1, up=1, n_gates=2, want_side=False)
-    e7_1, _ = _sse_block(p["ec12"], e7, dilation=1, up=1, n_gates=2, want_side=False)
+    e6, _ = _sse_block(p["ec10"], e6, dilation=1, **std)
+    e7, _ = _sse_block(p["ec11"], e6, dilation=1, **std)
+    e7_1, _ = _sse_block(p["ec12"], e7, dilation=1, **std)
     f9, f10, f11 = e6, e7, e7_1
-    e7 = _cat_block(p["ec123"], cat(e7_1, e6, e7))
+    e7 = _cat_block(p["ec123"], cat(e7_1, e6, e7), space)
 
     # ---- decoder level 3 (1/4) ----
-    e8 = upsample_trilinear(e7, 2, mat=fp.get("interp_tri"))
-    d0, _ = _sse_block(p["dc1"], cat(e8, e5), dilation=1, up=1, n_gates=2,
-                       want_side=False)
-    d0_1, _ = _sse_block(p["dc2"], d0, dilation=1, up=1, n_gates=2, want_side=False)
+    e8 = upsample_trilinear(e7, 2, mat=fp.get("interp_tri"), space=space)
+    d0, _ = _sse_block(p["dc1"], cat(e8, e5), dilation=1, **std)
+    d0_1, _ = _sse_block(p["dc2"], d0, dilation=1, **std)
     f12, f13 = d0, d0_1
-    d0 = _cat_block(p["dc22"], cat(d0_1, d0))
+    d0 = _cat_block(p["dc22"], cat(d0_1, d0), space)
 
     # ---- decoder level 2 (s2d at the 1/2 grid) ----
-    m = d0.shape[1]
-    d1s = upsample_to_s2d(d0, 2, pair=interp.get((m, 2 * m)))
+    m = d0.shape[2]
+    d1s = upsample_to_s2d(d0, 2, pair=interp.get((m, 2 * m)), space=space)
     d1s = _sse_block_s2d_phased(fp["dc3"], [d1s, e3s])
     d1_1s = _sse_block_s2d_phased(fp["dc4"], d1s)
     f14, f15 = d1s, d1_1s
-    d1s = _cat_block_s2d(fp["dc42"], [d1_1s, d1s])
+    d1s = _cat_block_s2d(fp["dc42"], [d1_1s, d1s], space)
 
     # ---- decoder level 1 (s2d at the full-resolution grid) ----
     d1f = depth_to_space(d1s)
-    m = d1f.shape[1]
-    up_s = upsample_to_s2d(d1f, 2, pair=interp.get((m, 2 * m)))
+    m = d1f.shape[2]
+    up_s = upsample_to_s2d(d1f, 2, pair=interp.get((m, 2 * m)), space=space)
     d2 = _sse_block_s2d_phased(fp["dc5"], [up_s, e1])
     d2_1 = _sse_block_s2d_phased(fp["dc6"], d2)
     f16, f17 = d2, d2_1
@@ -678,7 +722,7 @@ def apply_fast(params: Params, x: torch.Tensor, *,
         drop_en = _drop_scale(r_en, cfg.drop_threshold, drop_rows)
         drop_de = _drop_scale(r_de, cfg.drop_threshold, drop_rows)
     pred_en = _composed_head(metas_en, p["head_en"], interp=interp, s2d_out=heads_s2d,
-                             drop=drop_en)
+                             drop=drop_en, space=space)
     pred_de = _composed_head(metas_de, p["head_de"], interp=interp, s2d_out=heads_s2d,
-                             drop=drop_de)
+                             drop=drop_de, space=space)
     return pred_en.to(torch.float32), pred_de.to(torch.float32)

@@ -13,9 +13,21 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import halo
+
 
 def _to_oidhw(kernel: torch.Tensor) -> torch.Tensor:
     return kernel.permute(4, 3, 0, 1, 2)
+
+
+def _pairs(padding) -> list:
+    """`padding` as three (lo, hi) pairs."""
+    if isinstance(padding, int):
+        return [(padding, padding)] * 3
+    padding = tuple(padding)
+    if all(isinstance(p, int) for p in padding):
+        return [(p, p) for p in padding]
+    return [tuple(p) for p in padding]
 
 
 def conv3d(
@@ -26,29 +38,30 @@ def conv3d(
     padding=0,
     dilation: int = 1,
     groups: int = 1,
+    space=None,
 ) -> torch.Tensor:
     """Conv over NDHWC `x` with DHWIO `kernel` ((kD, kH, kW, Ci/groups,
     Co)); returns NDHWC in `x`'s dtype.
 
     `padding`: an int, three per-axis ints, or three (lo, hi) pairs.
+    `space`: a `parallel.DataMesh` whose `space` axis splits the depth; x
+    is then this rank's depth slab, and the depth padding comes from the
+    neighbouring slabs (`parallel.halo`, zero planes at the crop's ends):
+    the output is this rank's slab of the conv of the whole crop.
     """
-    if isinstance(padding, int):
-        pad3 = (padding,) * 3
+    lo_hi = _pairs(padding)
+    if space is not None:
+        x = halo(x, *lo_hi[0], space)
+        lo_hi[0] = (0, 0)
+    if all(lo == hi for lo, hi in lo_hi):
+        pad3 = tuple(lo for lo, _ in lo_hi)
     else:
-        padding = tuple(padding)
-        if all(isinstance(p, int) for p in padding):
-            pad3 = padding
-        else:
-            lo_hi = [tuple(p) for p in padding]
-            if all(lo == hi for lo, hi in lo_hi):
-                pad3 = tuple(lo for lo, _ in lo_hi)
-            else:
-                # asymmetric: pad explicitly (F.pad takes the last axis first)
-                flat = []
-                for lo, hi in reversed(lo_hi):
-                    flat += [lo, hi]
-                x = F.pad(x, [0, 0] + flat)
-                pad3 = (0, 0, 0)
+        # asymmetric: pad explicitly (F.pad takes the last axis first)
+        flat = []
+        for lo, hi in reversed(lo_hi):
+            flat += [lo, hi]
+        x = F.pad(x, [0, 0] + flat)
+        pad3 = (0, 0, 0)
     y = F.conv3d(
         x.permute(0, 4, 1, 2, 3),
         _to_oidhw(kernel).to(x.dtype),

@@ -71,10 +71,9 @@ def phased_conv_stats_plain(xs, w_all, b_all):
     xs = list(xs) if isinstance(xs, (list, tuple)) else [xs]
     dt = xs[0].dtype
     acc = _acc(dt)
-    n = xs[0].shape[1]
     w = w_all.reshape(2, 2, 2, *w_all.shape[1:]).to(acc)
     y_ext = phased_conv_ext([t.to(acc) for t in xs], w, b_all.to(acc))
-    return _with_sums(torch.cat(phase_windows(y_ext, n), dim=-1), dt)
+    return _with_sums(torch.cat(phase_windows(y_ext), dim=-1), dt)
 
 
 def phase_scatter_plain(y_ext, n: int, co: int):

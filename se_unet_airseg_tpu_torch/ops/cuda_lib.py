@@ -67,12 +67,12 @@ def _stream(t):
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # exported C functions: name -> argument types (all return int)
 _SIGNATURES = {
-    "airseg_gathered_epilogue": [_I, _I, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _P],
+    "airseg_gathered_epilogue": [_I, _I, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _P],
     "airseg_phased_epilogue": [_I, _I, _P, _LL, _LL, _LL, _LL, _I, _P, _P, _P, _P, _I,
-                               _LL, _I, _I, _P],
+                               _LL, _I, _I, _I, _P],
     "airseg_epilogue_tma_smem": [_I, _I],
     "airseg_phased_normalize": [_I, _I, _P, _LL, _LL, _LL, _LL, _I, _P, _P, _P, _LL, _I,
-                                _I, _P],
+                                _I, _I, _P],
     "airseg_max_pool_s2d_bwd": [_I, _P, _P, _P, _LL, _I, _I, _P],
     "airseg_phased_conv_stats": [_I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
     "airseg_conv_wgmma": [_I, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P, _P, _P, _LL, _I, _I,

@@ -7,17 +7,19 @@ points on the inference and train paths are three CUDA kernels here
 (`csrc/epilogue.cu`, built and bound by `ops/cuda_lib.py`):
 
   * `gathered_epilogue`: over an already-gathered s2d conv output
-    (B, n, n, n, 8C) (gated_norm_finalize[_bm]);
+    (B, nz, n, n, 8C) (gated_norm_finalize[_bm]);
   * `phased_epilogue`: over the phased conv's UNGATHERED output
-    (B, n+1, n+1, xw, 8C); sub-position q = (a, b, c) of voxel
+    (B, nz+1, n+1, xw, 8C); sub-position q = (a, b, c) of voxel
     (z, y, x) reads y_ext[z+a, y+b, x+c] in lane block q
     (phased_finalize[_bm]);
   * `phased_normalize`: the phased form without LeakyReLU and gates,
     the normalized pre-activation that the phased backward reads
     (phased_normalize).
 
-Each kernel has three designs (the first port's per-voxel kernel and
-two persistent ones, 16-byte loads or, for the phased forms, TMA); the
+The depth extent nz is n for a cube and n / n_space for a depth slab of
+the mesh's `space` axis. Each kernel has three designs (the first port's
+per-voxel kernel and two persistent ones, 16-byte loads or, for the
+phased forms, TMA); the
 wrapper picks one by shape before the launch (`pick_design`), and the
 persistent tile walk and TMA boxes are stated in plain Python beside it
 (`epilogue_tiles_plain`, `phased_tma_gather_plain`, `thread_rows_plain`)
@@ -40,6 +42,14 @@ hand the affine to the kernels:
     sums (`dil2_dense_conv_stats`), the affine from those sums, gathered
     form (`_dil2_gated_forward_bm`, pallas_s2d.py:2263).
 
+With `space=` (a `parallel.DataMesh` whose `space` axis splits the depth)
+each block runs on this rank's depth slab: the statistics' sums, and in
+the backward the sums Q and R, add over the space ranks
+(`parallel.space_sum`), the voxel count is the whole crop's, and the
+phased conv takes its depth padding from the neighbouring slabs
+(`parallel.halo`), in the forward and in the backward's replay, whose
+halo returns its cotangent to the neighbours.
+
 Under autograd each is a `torch.autograd.Function` that saves the block
 inputs only. The gathered and phased blocks' backward is the JAX
 package's hand-written epilogue backward (`pallas_s2d.py:2362-2547`) in
@@ -57,6 +67,7 @@ from itertools import product
 
 import torch
 
+from ..parallel.mesh import space_sum
 from .conv import conv3d
 from .conv_stats import dil2_dense_conv_stats, phased_conv_ungathered
 from .cuda_lib import _DTYPE_CODE, F32, _acc, _on_card, _stream, launch
@@ -87,9 +98,8 @@ def gathered_epilogue_plain(y, scale8, shift8, wse=None):
 
 def phased_epilogue_plain(y_ext, scale8, shift8, wse=None):
     """Plain PyTorch version of the phased epilogue: gather the 8 phase
-    windows of y_ext (B, n+1, n+1, xw, 8C), then the gathered epilogue."""
-    n = y_ext.shape[1] - 1
-    y = torch.cat(phase_windows(y_ext, n), dim=-1)
+    windows of y_ext (B, nz+1, n+1, xw, 8C), then the gathered epilogue."""
+    y = torch.cat(phase_windows(y_ext), dim=-1)
     return gathered_epilogue_plain(y, scale8, shift8, wse)
 
 
@@ -97,8 +107,7 @@ def phased_normalize_plain(y_ext, scale8, shift8):
     """Plain PyTorch version of phased_normalize: the 8 phase windows of
     y_ext, gathered, times scale8 minus shift8, rounded once to y_ext's
     dtype."""
-    n = y_ext.shape[1] - 1
-    y = torch.cat(phase_windows(y_ext, n), dim=-1)
+    y = torch.cat(phase_windows(y_ext), dim=-1)
     bshape = (y.shape[0], 1, 1, 1, y.shape[-1])
     a = y.to(_acc(y.dtype)) * scale8.reshape(bshape) - shift8.reshape(bshape)
     return a.to(y.dtype)
@@ -126,21 +135,22 @@ def epilogue_tile(c8: int, elt: int, phased: bool) -> int:
     return max(16, min(TILE_BYTES // (c8 * elt), 64 if phased else 128))
 
 
-def epilogue_tiles_plain(b: int, n: int, tile: int, phased: bool):
-    """The persistent kernels' tile walk (`tile_at` in csrc/epilogue.cu):
-    for each tile index t in order, (b, z, y, x0, count). A phased tile is
-    `count` output voxels (z, y, x0..x0+count-1); a gathered tile is rows
-    x0..x0+count-1 of batch entry b (z = y = 0). Block k of a grid of G
-    takes tiles k, k+G, k+2G, ..."""
+def epilogue_tiles_plain(b: int, nz: int, n: int, tile: int, phased: bool):
+    """The persistent kernels' tile walk (`tile_at` in csrc/epilogue.cu)
+    over a (b, nz, n, n) output (nz = n: a cube): for each tile index t in
+    order, (b, z, y, x0, count). A phased tile is `count` output voxels
+    (z, y, x0..x0+count-1); a gathered tile is rows x0..x0+count-1 of
+    batch entry b (z = y = 0). Block k of a grid of G takes tiles k, k+G,
+    k+2G, ..."""
     if phased:
         tiles_x = -(-n // tile)
-        for t in range(b * n * n * tiles_x):
+        for t in range(b * nz * n * tiles_x):
             xt, r = t % tiles_x, t // tiles_x
             yy, r = r % n, r // n
-            z, bb = r % n, r // n
+            z, bb = r % nz, r // nz
             yield bb, z, yy, xt * tile, min(tile, n - xt * tile)
     else:
-        n3 = n ** 3
+        n3 = nz * n * n
         tiles_x = -(-n3 // tile)
         for t in range(b * tiles_x):
             x0 = (t % tiles_x) * tile
@@ -161,13 +171,14 @@ def phased_tma_gather_plain(y_ext, tile: int):
     """The TMA design's phase gather, tile by tile: per tile the 4 boxes
     (T+1 voxels x 2C lanes) at y_ext[b, z+a, y+b', x0 : x0+T+1,
     (4a+2b')C : (4a+2b'+2)C], sub-position (a, b', c) of voxel i read from
-    box (a, b') at voxel i + c, lanes cC : (c+1)C. Returns the gathered
-    (B, n, n, n, 8C) and how often each output voxel was written."""
-    b, m, c8 = y_ext.shape[0], y_ext.shape[1], y_ext.shape[-1]
-    n, c = m - 1, c8 // 8
-    out = torch.zeros((b, n, n, n, c8), dtype=y_ext.dtype)
-    writes = torch.zeros((b, n, n, n), dtype=torch.int64)
-    for bb, z, yy, x0, count in epilogue_tiles_plain(b, n, tile, True):
+    box (a, b') at voxel i + c, lanes cC : (c+1)C, of y_ext (B, nz+1,
+    n+1, xw, 8C). Returns the gathered (B, nz, n, n, 8C) and how often
+    each output voxel was written."""
+    b, nz, n, c8 = y_ext.shape[0], y_ext.shape[1] - 1, y_ext.shape[2] - 1, y_ext.shape[-1]
+    c = c8 // 8
+    out = torch.zeros((b, nz, n, n, c8), dtype=y_ext.dtype)
+    writes = torch.zeros((b, nz, n, n), dtype=torch.int64)
+    for bb, z, yy, x0, count in epilogue_tiles_plain(b, nz, n, tile, True):
         boxes = [_box(y_ext, (bb, z + q // 2, yy + q % 2, x0, 2 * q * c),
                       (1, 1, 1, tile + 1, 2 * c)).reshape(tile + 1, 2 * c) for q in range(4)]
         rows = torch.cat([boxes[p // 2][p % 2:p % 2 + count, (p % 2) * c:(p % 2 + 1) * c]
@@ -196,9 +207,9 @@ def thread_rows_plain(c8: int, elt: int, tile: int, rows_in_flight: int = 4):
 def _tma_strides_ok(y_ext) -> bool:
     """Whether the phased TMA tensor map can describe y_ext: each stride
     spans the dimension inside it (x >= 8C lanes, y >= xw voxels, ...)."""
-    m, xw, c8 = y_ext.shape[1], y_ext.shape[3], y_ext.shape[4]
+    mz, my, xw, c8 = y_ext.shape[1], y_ext.shape[2], y_ext.shape[3], y_ext.shape[4]
     sb, sz, sy, sx = (y_ext.stride(i) for i in range(4))
-    return sx >= c8 and sy >= xw * sx and sz >= m * sy and sb >= m * sz
+    return sx >= c8 and sy >= xw * sx and sz >= my * sy and sb >= mz * sz
 
 
 def pick_design(y, phased: bool, normalize: bool = False) -> str:
@@ -256,15 +267,16 @@ def _design_code(y, phased: bool, design, normalize: bool = False) -> int:
 
 
 def gathered_epilogue(y, scale8, shift8, wse=None, *, design=None):
-    """Gathered epilogue: y (B, n, n, n, 8C) contiguous -> same shape.
-    Replaces gated_norm_finalize_bm / gated_norm_finalize. `design` (a
-    key of DESIGNS) overrides the shape's choice, for comparisons."""
+    """Gathered epilogue: y (B, nz, n, n, 8C) contiguous -> same shape
+    (nz = n: a cube; a depth slab has nz < n). Replaces
+    gated_norm_finalize_bm / gated_norm_finalize. `design` (a key of
+    DESIGNS) overrides the shape's choice, for comparisons."""
     if not _on_card(y):
         return gathered_epilogue_plain(y, scale8, shift8, wse)
-    b, n, c8 = y.shape[0], y.shape[1], y.shape[-1]
-    if y.dim() != 5 or y.shape[1:4] != (n, n, n) or not y.is_contiguous():
-        raise ValueError(f"y must be a contiguous (B, n, n, n, 8C) tensor, got "
+    if y.dim() != 5 or y.shape[2] != y.shape[3] or not y.is_contiguous():
+        raise ValueError(f"y must be a contiguous (B, nz, n, n, 8C) tensor, got "
                          f"{tuple(y.shape)}")
+    b, nz, n, c8 = y.shape[0], y.shape[1], y.shape[2], y.shape[-1]
     _check_common(y, scale8, shift8, wse, c8)
     out = torch.empty_like(y)
     with torch.cuda.device(y.device):
@@ -272,63 +284,72 @@ def gathered_epilogue(y, scale8, shift8, wse=None, *, design=None):
                _DTYPE_CODE[y.dtype], _design_code(y, False, design), y.data_ptr(),
                out.data_ptr(), scale8.data_ptr(), shift8.data_ptr(),
                None if wse is None else wse.data_ptr(),
-               0 if wse is None else wse.shape[0], b, n, c8, _stream(y))
+               0 if wse is None else wse.shape[0], b, nz, n, c8, _stream(y))
     return out
 
 
 def _check_phased(y_ext, scale8, shift8, wse):
     """Shape and stride checks of the phased kernels; returns
-    (B, n, 8C, (sb, sz, sy, sx))."""
-    b, m, c8 = y_ext.shape[0], y_ext.shape[1], y_ext.shape[-1]
-    if y_ext.dim() != 5 or y_ext.shape[2] != m or y_ext.shape[3] < m \
-            or y_ext.stride(4) != 1:
-        raise ValueError(f"y_ext must be (B, n+1, n+1, xw>=n+1, 8C) with unit "
+    (B, nz, n, 8C, (sb, sz, sy, sx))."""
+    if y_ext.dim() != 5 or y_ext.shape[3] < y_ext.shape[2] or y_ext.stride(4) != 1:
+        raise ValueError(f"y_ext must be (B, nz+1, n+1, xw>=n+1, 8C) with unit "
                          f"channel stride, got {tuple(y_ext.shape)}")
+    b, mz, m, c8 = y_ext.shape[0], y_ext.shape[1], y_ext.shape[2], y_ext.shape[-1]
     vec = _check_common(y_ext, scale8, shift8, wse, c8)
     strides = tuple(y_ext.stride(i) for i in range(4))
     if any(s % vec for s in strides):
         raise ValueError("y_ext strides must be multiples of 16 bytes")
-    return b, m - 1, c8, strides
+    return b, mz - 1, m - 1, c8, strides
 
 
 def phased_epilogue(y_ext, scale8, shift8, wse=None, *, design=None):
-    """Phased epilogue: y_ext (B, n+1, n+1, xw, 8C), xw >= n+1, any
+    """Phased epilogue: y_ext (B, nz+1, n+1, xw, 8C), xw >= n+1, any
     16-byte-aligned strides with a unit channel stride -> gathered
-    (B, n, n, n, 8C). Replaces phased_finalize_bm / phased_finalize.
+    (B, nz, n, n, 8C). Replaces phased_finalize_bm / phased_finalize.
     `design` as for `gathered_epilogue`."""
     if not _on_card(y_ext):
         return phased_epilogue_plain(y_ext, scale8, shift8, wse)
-    b, n, c8, (sb, sz, sy, sx) = _check_phased(y_ext, scale8, shift8, wse)
-    out = torch.empty((b, n, n, n, c8), dtype=y_ext.dtype, device=y_ext.device)
+    b, nz, n, c8, (sb, sz, sy, sx) = _check_phased(y_ext, scale8, shift8, wse)
+    out = torch.empty((b, nz, n, n, c8), dtype=y_ext.dtype, device=y_ext.device)
     with torch.cuda.device(y_ext.device):
         launch("airseg_phased_epilogue", "phased_epilogue",
                _DTYPE_CODE[y_ext.dtype], _design_code(y_ext, True, design), y_ext.data_ptr(),
                sb, sz, sy, sx, y_ext.shape[3], out.data_ptr(), scale8.data_ptr(),
                shift8.data_ptr(), None if wse is None else wse.data_ptr(),
-               0 if wse is None else wse.shape[0], b, n, c8, _stream(y_ext))
+               0 if wse is None else wse.shape[0], b, nz, n, c8, _stream(y_ext))
     return out
 
 
 def phased_normalize(y_ext, scale8, shift8, *, design=None):
     """Phase gather + InstanceNorm affine only: y_ext as for
-    `phased_epilogue` -> a (B, n, n, n, 8C) = dtype(y * scale8 - shift8).
+    `phased_epilogue` -> a (B, nz, n, n, 8C) = dtype(y * scale8 - shift8).
     Replaces phased_normalize. `design` as for `gathered_epilogue`."""
     if not _on_card(y_ext):
         return phased_normalize_plain(y_ext, scale8, shift8)
-    b, n, c8, (sb, sz, sy, sx) = _check_phased(y_ext, scale8, shift8, None)
-    out = torch.empty((b, n, n, n, c8), dtype=y_ext.dtype, device=y_ext.device)
+    b, nz, n, c8, (sb, sz, sy, sx) = _check_phased(y_ext, scale8, shift8, None)
+    out = torch.empty((b, nz, n, n, c8), dtype=y_ext.dtype, device=y_ext.device)
     with torch.cuda.device(y_ext.device):
         launch("airseg_phased_normalize", "phased_normalize",
                _DTYPE_CODE[y_ext.dtype], _design_code(y_ext, True, design, normalize=True),
                y_ext.data_ptr(), sb, sz, sy, sx, y_ext.shape[3], out.data_ptr(),
-               scale8.data_ptr(), shift8.data_ptr(), b, n, c8, _stream(y_ext))
+               scale8.data_ptr(), shift8.data_ptr(), b, nz, n, c8, _stream(y_ext))
     return out
 
 
 # --------------------------------------------------------- statistics
 
 
-def _gathered_affine(y, eps: float):
+def _whole_affine(s1, s2, nvox: int, eps: float, space):
+    """`_affine8` of the (B, C) sums s1, s2 over `nvox` values; with
+    `space`, of this rank's depth slab: the sums add over the space ranks
+    (one collective) and the count is the whole crop's."""
+    if space is not None:
+        s1, s2 = space_sum(torch.stack([s1, s2]), space).unbind(0)
+        nvox *= space.space_size
+    return _affine8(s1, s2, nvox, eps)
+
+
+def _gathered_affine(y, eps: float, space=None):
     """InstanceNorm affine of a gathered s2d tensor (per original channel,
     over space x 8 sub-positions)."""
     b, c8 = y.shape[0], y.shape[-1]
@@ -337,20 +358,21 @@ def _gathered_affine(y, eps: float):
     s1 = yf.sum(dim=(1, 2, 3)).reshape(b, 8, c).sum(1)
     s2 = torch.square(yf).sum(dim=(1, 2, 3)).reshape(b, 8, c).sum(1)
     del yf
-    return _affine8(s1, s2, y.shape[1] * y.shape[2] * y.shape[3] * 8, eps)
+    return _whole_affine(s1, s2, y.shape[1] * y.shape[2] * y.shape[3] * 8, eps, space)
 
 
-def _phased_affine(y_ext, n: int, eps: float):
+def _phased_affine(y_ext, eps: float, space=None):
     """InstanceNorm affine over the 8 phase windows of a phased conv's
-    ungathered output."""
+    ungathered output (B, nz+1, n+1, n+1, 8C)."""
     acc = _acc(y_ext.dtype)
+    nz, n = y_ext.shape[1] - 1, y_ext.shape[2] - 1
     s1 = s2 = 0.0
-    for sl in phase_windows(y_ext, n):
+    for sl in phase_windows(y_ext):
         slf = sl.to(acc)
         s1 = s1 + slf.sum(dim=(1, 2, 3))
         s2 = s2 + torch.square(slf).sum(dim=(1, 2, 3))
     del slf
-    return _affine8(s1, s2, 8 * n * n * n, eps)
+    return _whole_affine(s1, s2, 8 * nz * n * n, eps, space)
 
 
 # ---------------------------------------------------------- backwards
@@ -386,12 +408,15 @@ def _gate_chain_bwd(e0, wse, ct):
     return d, torch.stack(dws)
 
 
-def _core_bwd_from_a(a, scale8, wse, ct, nvox: int):
+def _core_bwd_from_a(a, scale8, wse, ct, nvox: int, space=None):
     """Backward of e = gates(LeakyReLU(a)) and of the InstanceNorm that
     made a = y*scale - shift, given a: gate chain backward, then the
     IN + LeakyReLU backward with both statistics sums, Q = sum(da) and
     R = sum(da * a) per original channel (`_core_bwd_from_a`,
-    pallas_s2d.py:2409). The LeakyReLU mask is taken on the rounded a."""
+    pallas_s2d.py:2409). The LeakyReLU mask is taken on the rounded a.
+    `space`: a is this rank's depth slab of a crop of `nvox` values; Q and
+    R add over the space ranks (the cotangents of the whole crop's
+    statistics)."""
     acc = _acc(a.dtype)
     b, c8 = a.shape[0], a.shape[-1]
     c = c8 // 8
@@ -400,51 +425,60 @@ def _core_bwd_from_a(a, scale8, wse, ct, nvox: int):
     d = d_e0.to(acc)
     daf = torch.where(a >= 0, d, d * 0.01)
     del d, d_e0
-    q = daf.sum(dim=(1, 2, 3)).reshape(b, 8, c).sum(1).repeat(1, 8)
-    r = (daf * af).sum(dim=(1, 2, 3)).reshape(b, 8, c).sum(1).repeat(1, 8)
+    qr = torch.stack([daf.sum(dim=(1, 2, 3)), (daf * af).sum(dim=(1, 2, 3))])
+    if space is not None:
+        qr = space_sum(qr, space)
+    q = qr[0].reshape(b, 8, c).sum(1).repeat(1, 8)
+    r = qr[1].reshape(b, 8, c).sum(1).repeat(1, 8)
     bshape = (b, 1, 1, 1, c8)
     dy = scale8.reshape(bshape) * (daf - (q.reshape(bshape) + af * r.reshape(bshape)) / nvox)
     return dy.to(a.dtype), d_wse
 
 
-def _gated_core_bwd(y, wse, ct, eps: float = 1e-5):
+def _gated_core_bwd(y, wse, ct, eps: float = 1e-5, space=None):
     """Backward of the gathered block e = gates(LeakyReLU(IN(y))): the
     statistics and the normalized a recomputed from y, then
     `_core_bwd_from_a` (`_gated_core_bwd`, pallas_s2d.py:2437).
     Returns (dy, d_wse)."""
-    scale8, shift8 = _gathered_affine(y, eps)
+    scale8, shift8 = _gathered_affine(y, eps, space)
     bshape = (y.shape[0], 1, 1, 1, y.shape[-1])
     a = (y.to(scale8.dtype) * scale8.reshape(bshape) - shift8.reshape(bshape)).to(y.dtype)
-    return _core_bwd_from_a(a, scale8, wse, ct, 8 * y.shape[1] * y.shape[2] * y.shape[3])
+    n_space = 1 if space is None else space.space_size
+    return _core_bwd_from_a(a, scale8, wse, ct,
+                            8 * y.shape[1] * y.shape[2] * y.shape[3] * n_space, space)
 
 
 def _manual_phased_gated_bwd(xs, w_all, b_all, wse, ct, eps: float = 1e-5,
-                             needs=None):
+                             needs=None, space=None):
     """Backward of the phased block (`_manual_phased_gated_bwd`,
     pallas_s2d.py:2467): replay the phased conv under autograd, recompute
     the window statistics, take the normalized a from `phased_normalize`,
     run the core backward in the gathered layout, scatter the cotangent
-    back to the conv's (n+1)^3 output and take the conv's backward.
+    back to the conv's (nz+1, n+1, n+1) output and take the conv's
+    backward. With `space` the replay takes its halo again, and the
+    halo's backward sends the boundary planes' cotangent to the
+    neighbouring slabs.
 
     `needs`: which of (xs..., w_all, b_all) want a gradient (default
     all). Returns (dxs, dw_all, db_all, d_wse); None where not wanted."""
     xs = list(xs)
-    n = xs[0].shape[1]
+    nz, n = xs[0].shape[1], xs[0].shape[2]
     co = w_all.shape[-1] // 8
     inputs = [*xs, w_all, b_all]
     needs = needs if needs is not None else [t is not None for t in inputs]
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(need) if t is not None else None
                   for t, need in zip(inputs, needs)]
-        y = phased_conv_ext(leaves[:-2], leaves[-2], leaves[-1])
+        y = phased_conv_ext(leaves[:-2], leaves[-2], leaves[-1], space)
     yd = y.detach().contiguous()
-    scale8, shift8 = _phased_affine(yd, n, eps)
+    scale8, shift8 = _phased_affine(yd, eps, space)
     a = phased_normalize(yd, scale8, shift8)
-    dyg, d_wse = _core_bwd_from_a(a, scale8, wse, ct, 8 * n * n * n)
+    n_space = 1 if space is None else space.space_size
+    dyg, d_wse = _core_bwd_from_a(a, scale8, wse, ct, 8 * nz * n * n * n_space, space)
     del a, yd
     dy_ext = torch.zeros_like(y)
     for q, (az, bb, cc) in enumerate(product(range(2), repeat=3)):
-        dy_ext[:, az:az + n, bb:bb + n, cc:cc + n, q * co:(q + 1) * co] = \
+        dy_ext[:, az:az + nz, bb:bb + n, cc:cc + n, q * co:(q + 1) * co] = \
             dyg[..., q * co:(q + 1) * co]
     del dyg
     wanted = [t for t, need in zip(leaves, needs) if need]
@@ -456,17 +490,22 @@ def _manual_phased_gated_bwd(xs, w_all, b_all, wse, ct, eps: float = 1e-5,
 # ------------------------------------------------------------ block functions
 
 
-def _gated_norm_forward(y, wse, eps):
+def _gated_norm_forward(y, wse, eps, space=None):
     y = y.contiguous()
-    scale8, shift8 = _gathered_affine(y, eps)
+    scale8, shift8 = _gathered_affine(y, eps, space)
     return gathered_epilogue(y, scale8, shift8, wse)
 
 
-def _phased_forward(xs, w_all, b_all, wse, eps, ext_kernel=False):
-    n = xs[0].shape[1]
-    conv = phased_conv_ungathered if ext_kernel else phased_conv_ext
-    y = conv(xs, w_all, b_all).contiguous()
-    scale8, shift8 = _phased_affine(y, n, eps)
+def _phased_forward(xs, w_all, b_all, wse, eps, ext_kernel=False, space=None):
+    if ext_kernel:
+        if space is not None:
+            raise NotImplementedError("the ungathered conv kernel takes no depth slab "
+                                      "(ROADMAP M9b)")
+        y = phased_conv_ungathered(xs, w_all, b_all)
+    else:
+        y = phased_conv_ext(xs, w_all, b_all, space)
+    y = y.contiguous()
+    scale8, shift8 = _phased_affine(y, eps, space)
     return phased_epilogue(y, scale8, shift8, wse)
 
 
@@ -483,17 +522,17 @@ class _GatedNormBlock(torch.autograd.Function):
     `_gated_core_bwd` (the custom vjp of pallas_s2d.py:852-872)."""
 
     @staticmethod
-    def forward(ctx, y, wse, eps):
-        ctx.eps = eps
+    def forward(ctx, y, wse, eps, space):
+        ctx.eps, ctx.space = eps, space
         ctx.save_for_backward(y, wse)
-        return _gated_norm_forward(y, wse, eps)
+        return _gated_norm_forward(y, wse, eps, space)
 
     @staticmethod
     def backward(ctx, ct):
         y, wse = ctx.saved_tensors
-        dy, d_wse = _gated_core_bwd(y, wse, ct, ctx.eps)
+        dy, d_wse = _gated_core_bwd(y, wse, ct, ctx.eps, ctx.space)
         return (dy if ctx.needs_input_grad[0] else None,
-                d_wse if ctx.needs_input_grad[1] else None, None)
+                d_wse if ctx.needs_input_grad[1] else None, None, None)
 
 
 class _PhasedGatedBlock(torch.autograd.Function):
@@ -502,18 +541,19 @@ class _PhasedGatedBlock(torch.autograd.Function):
     custom vjp of pallas_s2d.py:1031-1054)."""
 
     @staticmethod
-    def forward(ctx, w_all, b_all, wse, eps, ext_kernel, *xs):
-        ctx.eps = eps
+    def forward(ctx, w_all, b_all, wse, eps, ext_kernel, space, *xs):
+        ctx.eps, ctx.space = eps, space
         ctx.save_for_backward(w_all, b_all, wse, *xs)
-        return _phased_forward(list(xs), w_all, b_all, wse, eps, ext_kernel)
+        return _phased_forward(list(xs), w_all, b_all, wse, eps, ext_kernel, space)
 
     @staticmethod
     def backward(ctx, ct):
         w_all, b_all, wse, *xs = ctx.saved_tensors
         ng = ctx.needs_input_grad
         dxs, dw, db, d_wse = _manual_phased_gated_bwd(
-            xs, w_all, b_all, wse, ct, ctx.eps, needs=[*ng[5:], ng[0], ng[1]])
-        return (dw, db, d_wse if ng[2] else None, None, None, *dxs)
+            xs, w_all, b_all, wse, ct, ctx.eps, needs=[*ng[6:], ng[0], ng[1]],
+            space=ctx.space)
+        return (dw, db, d_wse if ng[2] else None, None, None, None, *dxs)
 
 
 class _Dil2GatedBlock(torch.autograd.Function):
@@ -545,25 +585,27 @@ def _wants_grad(*ts) -> bool:
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts)
 
 
-def gated_norm_block(y, wse=None, eps: float = 1e-5):
+def gated_norm_block(y, wse=None, eps: float = 1e-5, space=None):
     """InstanceNorm (per original channel, over space x 8 sub-positions)
-    + LeakyReLU + SE gate(s) of a gathered s2d conv output."""
+    + LeakyReLU + SE gate(s) of a gathered s2d conv output; with `space`
+    (a `parallel.DataMesh`), of this rank's depth slab of it."""
     if _wants_grad(y, wse):
-        return _GatedNormBlock.apply(y, wse, eps)
-    return _gated_norm_forward(y, wse, eps)
+        return _GatedNormBlock.apply(y, wse, eps, space)
+    return _gated_norm_forward(y, wse, eps, space)
 
 
 def phased_gated_block(xs, w_all, b_all, wse=None, eps: float = 1e-5,
-                       ext_kernel: bool = False):
+                       ext_kernel: bool = False, space=None):
     """Phased s2d conv block: conv of the plain concat `xs` with the
     phase-stacked kernel (list partial sums, padding 1; with `ext_kernel`
     the `phased_conv_ungathered` kernel, accumulated in f32 and rounded
     once), statistics over the 8 phase windows of the ungathered output,
-    then the phased epilogue."""
+    then the phased epilogue; with `space` (a `parallel.DataMesh`), on
+    this rank's depth slabs."""
     xs = list(xs)
     if _wants_grad(*xs, w_all, b_all, wse):
-        return _PhasedGatedBlock.apply(w_all, b_all, wse, eps, ext_kernel, *xs)
-    return _phased_forward(xs, w_all, b_all, wse, eps, ext_kernel)
+        return _PhasedGatedBlock.apply(w_all, b_all, wse, eps, ext_kernel, space, *xs)
+    return _phased_forward(xs, w_all, b_all, wse, eps, ext_kernel, space)
 
 
 def dil2_gated_block(x, wd, bg, wse=None, eps: float = 1e-5):

@@ -4,12 +4,22 @@ Statistics are taken in float32 whatever the activation dtype."""
 
 import torch
 
+from ..parallel.mesh import space_sum
 
-def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Per-(N, C) normalization of an NDHWC tensor over D, H, W."""
+
+def instance_norm(x: torch.Tensor, eps: float = 1e-5, space=None) -> torch.Tensor:
+    """Per-(N, C) normalization of an NDHWC tensor over D, H, W. With
+    `space` (a `parallel.DataMesh` splitting the depth) x is this rank's
+    depth slab: the two passes' sums add over the space ranks
+    (`parallel.space_sum`) and the count is the whole crop's."""
     xf = x.to(torch.float32)
-    mean = xf.mean(dim=(1, 2, 3), keepdim=True)
-    var = torch.square(xf - mean).mean(dim=(1, 2, 3), keepdim=True)
+    if space is None:
+        mean = xf.mean(dim=(1, 2, 3), keepdim=True)
+        var = torch.square(xf - mean).mean(dim=(1, 2, 3), keepdim=True)
+    else:
+        n = x.shape[1] * x.shape[2] * x.shape[3] * space.space_size
+        mean = space_sum(xf.sum(dim=(1, 2, 3), keepdim=True), space) / n
+        var = space_sum(torch.square(xf - mean).sum(dim=(1, 2, 3), keepdim=True), space) / n
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 

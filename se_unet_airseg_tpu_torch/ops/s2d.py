@@ -36,10 +36,11 @@ from itertools import product
 import numpy as np
 import torch
 
+from ..parallel.mesh import halo, space_sum
 from .conv import conv3d
 from .cuda_lib import launch
 from .norms import leaky_relu
-from .resize import _interp_matrix, contract_axis
+from .resize import _interp_matrix, contract_axis, slab_matrix
 
 
 def space_to_depth(x: torch.Tensor) -> torch.Tensor:
@@ -144,12 +145,13 @@ def plain_to_interleaved_perm(channel_counts: tuple) -> tuple:
     return tuple(perm)
 
 
-def instance_norm_s2d(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def instance_norm_s2d(x: torch.Tensor, eps: float = 1e-5, space=None) -> torch.Tensor:
     """InstanceNorm over (D, H, W, 8 sub-positions) per original channel,
-    one-pass f32 statistics (var = E[x^2] - E[x]^2, clamped at 0)."""
+    one-pass f32 statistics (var = E[x^2] - E[x]^2, clamped at 0); with
+    `space`, of the whole crop from this rank's depth slab."""
     xf = x.to(torch.float32)
     return instance_norm_from_stats(x, xf.sum(dim=(1, 2, 3)),
-                                    torch.square(xf).sum(dim=(1, 2, 3)), eps)
+                                    torch.square(xf).sum(dim=(1, 2, 3)), eps, space)
 
 
 def _affine8(s1, s2, nvox: int, eps: float):
@@ -163,15 +165,21 @@ def _affine8(s1, s2, nvox: int, eps: float):
 
 
 def instance_norm_from_stats(y: torch.Tensor, s1: torch.Tensor, s2: torch.Tensor,
-                             eps: float = 1e-5) -> torch.Tensor:
+                             eps: float = 1e-5, space=None) -> torch.Tensor:
     """InstanceNorm of an s2d tensor y (B, n, n, n, 8C) from its per-lane
     sums s1, s2 (B, 8C) (the outputs of `phased_conv_stats` /
     `dil2_conv_stats`): the 8 sub-positions' sums add per original
-    channel, then y * scale8 - shift8 in f32, rounded once to y's dtype."""
+    channel, then y * scale8 - shift8 in f32, rounded once to y's dtype.
+    `space` (a `parallel.DataMesh`): y is this rank's depth slab, s1 and
+    s2 its sums, which add over the space ranks (`parallel.space_sum`);
+    the count is the whole crop's."""
     b, d, h, w, c8 = y.shape
     c = c8 // 8
-    scale8, shift8 = _affine8(s1.reshape(b, 8, c).sum(1), s2.reshape(b, 8, c).sum(1),
-                              8 * d * h * w, eps)
+    s12 = torch.stack([s1.reshape(b, 8, c).sum(1), s2.reshape(b, 8, c).sum(1)])
+    n_space = 1
+    if space is not None:
+        s12, n_space = space_sum(s12, space), space.space_size
+    scale8, shift8 = _affine8(s12[0], s12[1], 8 * d * h * w * n_space, eps)
     bshape = (b, 1, 1, 1, c8)
     return (y.to(scale8.dtype) * scale8.reshape(bshape) - shift8.reshape(bshape)).to(y.dtype)
 
@@ -318,22 +326,25 @@ def _interp_pair(n_in: int, n_out_full: int) -> np.ndarray:
     return np.stack([m[0::2], m[1::2]])
 
 
-def upsample_to_s2d(x: torch.Tensor, scale: int, pair=None) -> torch.Tensor:
+def upsample_to_s2d(x: torch.Tensor, scale: int, pair=None, space=None) -> torch.Tensor:
     """Trilinear align_corners upsample of (B, m, m, m, C) by `scale`,
     emitted in s2d layout (B, m*scale/2, ..., 8C). bf16 inputs contract
     in bf16 (one rounding per axis), f32 inputs in f32. `pair` is the
-    precomputed (2, m*scale/2, m) even/odd matrix of a cube."""
-    b, d, h, w, c = x.shape
+    precomputed (2, e*scale/2, e) even/odd matrix of the axes of extent e.
+    `space` (a `parallel.DataMesh`): x is this rank's depth slab, the
+    result its slab of the whole crop's upsample (`resize.slab_matrix`)."""
     ct = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
-    mats = []
-    for ext in (d, h, w):
-        pr = pair if pair is not None else torch.from_numpy(_interp_pair(ext, ext * scale))
-        pr = pr.to(device=x.device, dtype=ct)
-        # interleave the even/odd rows back into the full matrix
-        mats.append(pr.transpose(0, 1).reshape(-1, pr.shape[-1]))
-    y = x.to(ct)
-    for axis, m in zip((1, 2, 3), mats):
-        y = contract_axis(m, y, axis)
+    y = (x if space is None else halo(x, 1, 1, space)).to(ct)
+    for axis in (1, 2, 3):
+        ext = x.shape[axis]
+        if axis == 1 and space is not None:
+            m = torch.from_numpy(slab_matrix(ext, scale, space.space_size, space.space_rank))
+        else:
+            pr = pair if pair is not None and pair.shape[-1] == ext else \
+                torch.from_numpy(_interp_pair(ext, ext * scale))
+            # interleave the even/odd rows back into the full matrix
+            m = pr.transpose(0, 1).reshape(-1, pr.shape[-1])
+        y = contract_axis(m.to(device=x.device, dtype=ct), y, axis)
     return space_to_depth(y).to(x.dtype)
 
 
@@ -375,26 +386,31 @@ def phased_conv_weights(w: torch.Tensor, b: torch.Tensor | None = None,
 
 
 def phased_conv_ext(xs: list, w_all: torch.Tensor,
-                    b_all: torch.Tensor | None) -> torch.Tensor:
+                    b_all: torch.Tensor | None, space=None) -> torch.Tensor:
     """The phased conv's ungathered output (B, n+1, n+1, n+1, 8Co) for a
     list of s2d tensors forming a plain concat: the concat never
     materializes (the conv is linear in its input channels, so the
-    per-input partial convs sum)."""
+    per-input partial convs sum). `space` (a `parallel.DataMesh`): the xs
+    are this rank's depth slabs of nz planes, padded in depth by one halo
+    plane a side, and the output is the (nz+1)-plane window grid
+    (B, nz+1, n+1, n+1, 8Co) of the slab's phase windows."""
     y, off = None, 0
     for t in xs:
         k = t.shape[-1]
         yt = conv3d(t, w_all[:, :, :, off : off + k, :],
-                    b_all if y is None else None, padding=1)
+                    b_all if y is None else None, padding=1, space=space)
         y = yt if y is None else y + yt
         off += k
     return y
 
 
-def phase_windows(y_ext: torch.Tensor, n: int) -> list:
-    """The 8 phase windows y_ext[:, a:a+n, b:b+n, c:c+n, qC:(q+1)C]."""
-    co = y_ext.shape[-1] // 8
+def phase_windows(y_ext: torch.Tensor) -> list:
+    """The 8 phase windows y_ext[:, a:a+nz, b:b+n, c:c+n, qC:(q+1)C] of
+    y_ext (B, nz+1, n+1, xw >= n+1, 8C) (nz = n: a cube; a depth slab's
+    grid has nz + 1 planes)."""
+    nz, n, co = y_ext.shape[1] - 1, y_ext.shape[2] - 1, y_ext.shape[-1] // 8
     return [
-        y_ext[:, a : a + n, bb : bb + n, c : c + n, q * co : (q + 1) * co]
+        y_ext[:, a : a + nz, bb : bb + n, c : c + n, q * co : (q + 1) * co]
         for q, (a, bb, c) in enumerate(product(range(2), repeat=3))
     ]
 
@@ -407,7 +423,7 @@ def conv3_s2d_phased_fused(xs, w_all: torch.Tensor,
     concat."""
     xs = list(xs) if isinstance(xs, (list, tuple)) else [xs]
     n = xs[0].shape[1]
-    slices = phase_windows(phased_conv_ext(xs, w_all, b_all), n)
+    slices = phase_windows(phased_conv_ext(xs, w_all, b_all))
     s1 = sum(sl.to(torch.float32).sum(dim=(1, 2, 3)) for sl in slices)
     s2 = sum(torch.square(sl.to(torch.float32)).sum(dim=(1, 2, 3)) for sl in slices)
     nvox = 8 * n * n * n

@@ -1,4 +1,4 @@
-"""Data parallelism of the port: one process per device over
+"""Data and space parallelism of the port: one process per device over
 torch.distributed (`mesh.py`)."""
 
 from .mesh import (
@@ -6,11 +6,14 @@ from .mesh import (
     DataMesh,
     MeshAxes,
     all_gather_rows,
+    all_gather_slabs,
     all_sum,
     batch_sharding,
     broadcast_tree,
+    halo,
     make_mesh,
     replicated,
+    space_sum,
     spawn,
     sum_over_ranks,
 )
@@ -20,11 +23,14 @@ __all__ = [
     "DataMesh",
     "MeshAxes",
     "all_gather_rows",
+    "all_gather_slabs",
     "all_sum",
     "batch_sharding",
     "broadcast_tree",
+    "halo",
     "make_mesh",
     "replicated",
+    "space_sum",
     "spawn",
     "sum_over_ranks",
 ]

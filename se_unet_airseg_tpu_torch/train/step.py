@@ -17,20 +17,30 @@ online hard-mining cache keys its filenames on (reference
 train.py:442-453).
 
 Under a mesh (`parallel.make_mesh`; JAX `step.py:195-233`) every rank
-runs the step on its rows [r*B/n, (r+1)*B/n) of the global batch
-(`step.place`), and the step's outputs are global on every rank:
-  * the loss is a ratio of global sums (`losses.py`): one `all_sum`,
-    whose backward is the identity, adds the ranks' sums, with the
-    per-crop GUL of every crop in its global place; the ranks' gradients
-    then add up to the one-process gradient, in one all_reduce of one
-    bucket (1,520,314 float32 parameters in 117 leaves, 6.1 MB);
+runs the step on its data row's rows [d*B/n, (d+1)*B/n) of the global
+batch (`step.place`), with `shard_space` on its depth slab s of them
+(rank (d, s) of an (n_data, n_space) mesh), and the step's outputs are
+global on every rank:
+  * the loss is a ratio of global sums (`losses.py`): one `all_sum`
+    over all ranks, whose backward is the identity, adds the ranks' sums,
+    with the per-crop GUL's sums of every crop in its global place (a
+    ratio taken on one slab would be another quantity); the ranks'
+    gradients then add up to the one-process gradient, in one all_reduce
+    over all ranks of one bucket (1,520,314 float32 parameters in 117
+    leaves, 6.1 MB), each slab adding its share;
+  * with `shard_space` the forward runs on depth slabs (`apply_fast(...,
+    space=mesh)`): halo exchanges around the convs and InstanceNorm sums
+    over the space ranks, in the forward and in the backward (remat
+    replays them; every rank replays the same blocks in the same order).
+    Without it a mesh with n_space > 1 runs each data row's batch
+    replicated over space, and space rank 0's sums and gradients count;
   * DropLayer's scale sums its mask over the whole batch, so every rank
     draws the global (B, .) uniforms from the same seeded generator (or
     takes the global `drop_draws`) and uses its own rows of them;
-  * a batch that does not divide over the ranks (the online hard-mining
-    replay's B=1) runs replicated: every rank computes the whole batch and
-    rank 0's sums and gradients stand for all, so the ranks stay bitwise
-    equal;
+  * a batch that does not divide over the data rows (the online
+    hard-mining replay's B=1) runs replicated over data (still split over
+    space with `shard_space`, as JAX's `crop_sharding`): data row 0's
+    sums and gradients stand for all, so the ranks stay bitwise equal;
   * every rank reaches both collectives of a step whatever it raised,
     and the gradient bucket carries each rank's status: when any rank
     failed, every rank raises before the optimizer step, with the
@@ -38,6 +48,12 @@ runs the step on its rows [r*B/n, (r+1)*B/n) of the global batch
     RuntimeError, so no rank waits out the group's timeout; when every
     failure was an out-of-memory error, each rank raises one and
     `make_resilient_step` rebuilds and retries on all of them together.
+    With `shard_space` the forward and backward themselves hold
+    collectives: a rank that fails inside them leaves its space row in
+    an exchange, which fails at the group's timeout (gloo raises, and
+    the step carries on to its collectives as above; NCCL's watchdog
+    ends the process), so every rank raises within a few timeouts and
+    none hangs.
 
 Counterpart of the JAX package's `train/step.py`, with these
 differences:
@@ -47,8 +63,11 @@ differences:
   * Under a mesh the JAX package turns its Pallas kernels off
     (`step.py:139-151`), since XLA cannot partition a single-device
     program. Each rank of the port runs a single-device program of its
-    own, so the port's kernels stay on. The `space` axis (`shard_space`)
-    is not ported and raises NotImplementedError.
+    own, so the port's kernels stay on (under `shard_space` the default
+    configuration's: K1, K2, K5 and K6 take depth slabs; `conv_stats` and
+    `conv_epi` raise, ROADMAP M9b).
+  * `shard_space=True` without a mesh raises ValueError (the JAX package
+    ignores the flag there).
   * `make_resilient_step` falls back on `torch.cuda.OutOfMemoryError`.
     The JAX package's branch for its TPU compile relay's "remote compile
     HTTP 500" answers is not carried over: this path has no such relay.
@@ -203,11 +222,12 @@ def make_train_step(cfg: SEUNetConfig = SEUNetConfig(), stage: int = 1, mesh=Non
 
     With a `mesh` (a `parallel.DataMesh`) the step takes the global batch
     (numpy arrays or tensors on any device), uploads this rank's rows
-    (`step.place`) and returns the global aux on every rank; see the
-    module docstring. `shard_space=True` raises NotImplementedError."""
+    (`step.place`; with `shard_space` their depth slab) and returns the
+    global aux on every rank; see the module docstring. `shard_space`
+    without a mesh raises ValueError."""
     check_mesh(mesh, shard_space)
     if mesh is not None:
-        return _make_sharded_step(cfg, stage, mesh, fast)
+        return _make_sharded_step(cfg, stage, mesh, fast, shard_space)
     loss_fn = make_loss_fn(cfg, stage, fast)
 
     def step(state: TrainState, batch, rng=None, *, drop_draws=None):
@@ -221,33 +241,37 @@ def make_train_step(cfg: SEUNetConfig = SEUNetConfig(), stage: int = 1, mesh=Non
     return step
 
 
-def _make_sharded_step(cfg: SEUNetConfig, stage: int, mesh, fast: bool):
+def _make_sharded_step(cfg: SEUNetConfig, stage: int, mesh, fast: bool, shard_space: bool):
     apply_fn = apply_fast if fast else apply
     n_sums = sum(_N_SUMS[stage])
+    space = mesh if shard_space else None
 
     def place(batch, device=None) -> dict:
         """This rank's rows of each batch key (all of them when the batch
-        does not divide over the ranks) as tensors on `device` (default
-        the mesh's); JAX `step.py:217-228`."""
+        does not divide over the data rows) and, with `shard_space`, their
+        depth slab, as tensors on `device` (default the mesh's); JAX
+        `step.py:205-228`."""
         b = batch["image"].shape[0]
-        lay = batch_sharding(mesh) if b % mesh.size == 0 else replicated(mesh)
+        lay = (batch_sharding if b % mesh.data_size == 0 else replicated)(mesh, shard_space)
         return {k: torch.as_tensor(lay(v)).to(device or mesh.device) for k, v in batch.items()}
 
     def local_sums(params, local, draws, rows, b):
-        """This rank's loss sums and, for stages 2/3, its crops' GUL in
-        their global places of a zero-filled (b,) vector, as one vector."""
+        """This rank's loss sums and, for stages 2/3, its crops' GUL sums
+        in their global places of a zero-filled (b, 2), as one vector."""
         p_en, p_de = _heads(apply_fn, cfg, params, local["image"], drop_draws=draws,
-                            drop_rows=rows)
+                            drop_rows=rows, space=space)
         parts = [torch.stack(s) for s in _stage_sums(stage, p_en, p_de, local)]
         if stage > 1:
-            per_crop = p_de.new_zeros(b)
-            per_crop[rows] = _per_crop_gul(p_de, local["label"], local["weight"]).detach()
-            parts.append(per_crop)
+            per_crop = p_de.new_zeros((b, 2))
+            per_crop[rows] = torch.stack([
+                torch.stack(general_union_sums(p, t, w))
+                for p, t, w in zip(p_de, local["label"], local["weight"])]).detach()
+            parts.append(per_crop.reshape(-1))
         return torch.cat(parts)
 
     def step(state: TrainState, batch, rng=None, *, drop_draws=None):
         b = batch["image"].shape[0]
-        sharded = b % mesh.size == 0
+        sharded = b % mesh.data_size == 0
         rows = mesh.rows(b) if sharded else slice(None)
         if drop_draws is None:
             if rng is None:
@@ -256,15 +280,17 @@ def _make_sharded_step(cfg: SEUNetConfig, stage: int, mesh, fast: bool):
         leaves = list(_leaves(state.params))
         dev = leaves[0].device
         state.optimizer.zero_grad(set_to_none=True)
-        # replicated: every rank computes the whole batch, rank 0's part counts
-        share = 1.0 if sharded or mesh.is_main else 0.0
+        # replicated over data (over space without shard_space): every rank
+        # computes the whole batch (its whole depth) and row 0's (slab 0's) counts
+        share = float((sharded or mesh.data_rank == 0)
+                      and (shard_space or mesh.space_rank == 0))
         error = None
         try:
             local = place(batch, dev)
             vec = local_sums(state.params, local, drop_draws, rows, b) * share
         except Exception as e:  # every rank must still reach both collectives
             error = e
-            vec = torch.zeros(n_sums + (b if stage > 1 else 0), device=dev)
+            vec = torch.zeros(n_sums + (2 * b if stage > 1 else 0), device=dev)
         total = all_sum(vec)
         parts = list(torch.split(total[:n_sums], _N_SUMS[stage]))
         loss, aux = _stage_losses(stage, [p.unbind() for p in parts])
@@ -294,7 +320,7 @@ def _make_sharded_step(cfg: SEUNetConfig, stage: int, mesh, fast: bool):
         state.optimizer.step()
         state.step += 1
         if stage > 1:
-            aux["per_crop_gul"] = total[n_sums:]
+            aux["per_crop_gul"] = union_from_sums(total[n_sums:].reshape(b, 2).unbind(1))
         aux["loss"] = loss
         return state, {k: v.detach() for k, v in aux.items()}
 
@@ -314,7 +340,12 @@ def make_resilient_step(cfg: SEUNetConfig = SEUNetConfig(), stage: int = 1, mesh
     change only in the optimizer's step, after the backward, where the
     memory peak lies. Under a mesh every rank raises the error when any
     rank ran out of memory, so all ranks fall back and retry together.
-    `_make_step` is an injection point for tests."""
+    Under `shard_space` that joint fallback holds only when every rank
+    of a space row runs out of memory at the same exchange: a rank that
+    fails alone inside the forward or backward leaves the others of its
+    row in a halo exchange until the group's timeout, after which they
+    fail with another error, and every rank raises RuntimeError instead
+    of falling back. `_make_step` is an injection point for tests."""
     make = _make_step or make_train_step
     holder = {"fn": make(cfg, stage, mesh, shard_space, fast), "fellback": False}
 

@@ -559,6 +559,42 @@ def test_persistent_epilogue_designs_match_plain(dev, design, dtype, b, n, c8, g
                                **TOL[dtype])
 
 
+@pytest.mark.parametrize("design", ["persistent ldg", "persistent tma", "per-voxel"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,nz,n,c8,gates,xw", [(8, 32, 64, 256, 1, None),
+                                                (8, 16, 32, 512, 2, None),
+                                                (2, 3, 33, 256, 2, 40), (1, 1, 9, 128, 1, None),
+                                                (3, 2, 5, 64, 0, 9)])
+def test_epilogue_designs_on_depth_slabs_match_plain(dev, design, dtype, b, nz, n, c8, gates,
+                                                     xw):
+    """K1, K2 and K5 on a depth slab of the mesh's `space` axis, every
+    design: the phased forms read y_ext (B, nz+1, n+1, xw, 8C) (the window
+    grid of a halo'd phased conv), the gathered form (B, nz, n, n, 8C); at
+    the model's slab shapes of 128^3 crops on 2 ranks (dc5 at the full
+    grid, dc3 at the 1/2 grid) and ragged ones."""
+    g = torch.Generator(device=dev).manual_seed(nz * n)
+    y = torch.randn((b, nz + 1, n + 1, xw or n + 1, c8), generator=g, device=dev).to(dtype)
+    scale8 = 0.5 + torch.rand((b, c8), generator=g, device=dev)
+    shift8 = 0.3 * torch.randn((b, c8), generator=g, device=dev)
+    wse = (0.1 * torch.randn((gates, c8 // 8), generator=g, device=dev)).to(dtype) \
+        if gates else None
+    reset_launch_counts()
+    got = eps.phased_epilogue(y, scale8, shift8, wse, design=design)
+    assert got.shape == (b, nz, n, n, c8)
+    torch.testing.assert_close(got, eps.phased_epilogue_plain(y, scale8, shift8, wse),
+                               **TOL[dtype])
+    got = eps.phased_normalize(y, scale8, shift8, design=design)
+    torch.testing.assert_close(got, eps.phased_normalize_plain(y, scale8, shift8),
+                               rtol=0, atol=0)
+    yg = y[:, :nz, :n, :n].contiguous()
+    gdesign = design if design in eps.designs(False) else "persistent ldg"
+    got = eps.gathered_epilogue(yg, scale8, shift8, wse, design=gdesign)
+    torch.cuda.synchronize()
+    assert launch_counts == _counts(gathered_epilogue=1, phased_epilogue=1, phased_normalize=1)
+    torch.testing.assert_close(got, eps.gathered_epilogue_plain(yg, scale8, shift8, wse),
+                               **TOL[dtype])
+
+
 def test_phased_epilogue_takes_ldg_where_tma_cannot(dev):
     """A y_ext whose z stride is below its y stride cannot be a TMA map:
     the wrapper picks the 16-byte-load design by shape, before the launch."""

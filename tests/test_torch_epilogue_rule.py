@@ -5,11 +5,13 @@ csrc/norm_leaky.cu), on the CPU, numpy and torch only.
 The persistent kernels walk tiles of T voxels (`epilogue_tiles_plain`);
 the TMA design reads each phased tile as 4 boxes of (T+1 voxels x 2C
 lanes). Gathering through those boxes must give the plain version's gather
-(`torch.cat(phase_windows(y_ext, n))`) exactly and write every output
+(`torch.cat(phase_windows(y_ext))`) exactly and write every output
 voxel once, and every (row, 16-byte vector) of a tile must belong to one
-thread. K7's partition of (B, S, C) into 16-byte vectors (or single
-channels where C or a base does not allow them), shared by the forward and
-the backward, must read every element once. Catches an off-by-one in a
+thread. Each holds on a depth slab of the mesh's `space` axis too
+(nz < n: y_ext (B, nz+1, n+1, xw, 8C), output (B, nz, n, n, 8C)). K7's
+partition of (B, S, C) into 16-byte vectors (or single channels where C
+or a base does not allow them), shared by the forward and the backward,
+must read every element once. Catches an off-by-one in a
 box or a tail before any card run."""
 
 import numpy as np
@@ -24,33 +26,41 @@ from se_unet_airseg_tpu_torch.ops.s2d import phase_windows
 PHASED_CALLS = [(256, 2), (512, 2), (256, 2), (256, 1), (128, 1)]
 
 
-def _y_ext(b, n, c8, xw, seed):
+def _y_ext(b, n, c8, xw, seed, nz=None):
     rng = np.random.default_rng(seed)
-    return torch.from_numpy(rng.standard_normal((b, n + 1, n + 1, xw, c8)).astype(np.float32))
+    nz = n if nz is None else nz
+    return torch.from_numpy(rng.standard_normal((b, nz + 1, n + 1, xw, c8)).astype(np.float32))
 
 
+@pytest.mark.parametrize("slab", [False, True])
 @pytest.mark.parametrize("elt", [2, 4])
 @pytest.mark.parametrize("c8", [64, 128, 256, 512])
 @pytest.mark.parametrize("n,pad", [(8, 0), (9, 3)])
-def test_phased_tma_boxes_reproduce_the_phase_gather(c8, elt, n, pad):
+def test_phased_tma_boxes_reproduce_the_phase_gather(c8, elt, n, pad, slab):
     """xw = n+1+pad: the padded x extent of a batch-major conv output; at
-    n = 9 no T divides n."""
-    y_ext = _y_ext(2, n, c8, n + 1 + pad, c8 + n)
+    n = 9 no T divides n. `slab`: a depth slab of nz = 3 planes (the
+    (nz+1)-plane window grid of a halo'd phased conv)."""
+    nz = 3 if slab else n
+    y_ext = _y_ext(2, n, c8, n + 1 + pad, c8 + n, nz)
     tile = eps.epilogue_tile(c8, elt, True)
     got, writes = eps.phased_tma_gather_plain(y_ext, tile)
-    want = torch.cat(phase_windows(y_ext, n), dim=-1)
+    want = torch.cat(phase_windows(y_ext), dim=-1)
+    assert got.shape == (2, nz, n, n, c8)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert bool((writes == 1).all())
 
 
+@pytest.mark.parametrize("nz", [9, 1, 4])
 @pytest.mark.parametrize("tile", [2, 4, 5])
-def test_phased_tma_boxes_with_several_tiles_per_row(tile):
+def test_phased_tma_boxes_with_several_tiles_per_row(tile, nz):
     """T below n: several tiles per x row, the last one ragged; the box of
-    the last tile reaches past xw and reads the tensor map's zero fill."""
+    the last tile reaches past xw and reads the tensor map's zero fill; on
+    a cube (nz = n) and on slabs."""
     n = 9
-    y_ext = _y_ext(1, n, 128, n + 1, tile)
+    y_ext = _y_ext(1, n, 128, n + 1, tile, nz)
     got, writes = eps.phased_tma_gather_plain(y_ext, tile)
-    torch.testing.assert_close(got, torch.cat(phase_windows(y_ext, n), dim=-1), rtol=0, atol=0)
+    torch.testing.assert_close(got, torch.cat(phase_windows(y_ext), dim=-1), rtol=0,
+                               atol=0)
     assert bool((writes == 1).all())
 
 
@@ -59,12 +69,16 @@ def test_tiles_at_the_model_shapes():
     more than one x row, a gathered tile never two batch entries."""
     assert [eps.epilogue_tile(c8, 2, True) for c8, _ in PHASED_CALLS] == [32, 16, 32, 32, 64]
     assert [eps.epilogue_tile(c8, 2, False) for c8 in (64, 128, 256, 512)] == [128, 64, 32, 16]
-    for n, phased in ((9, True), (9, False), (32, True)):
+    for n, nz, phased in ((9, 9, True), (9, 9, False), (32, 32, True), (32, 16, True),
+                          (64, 32, False), (9, 2, True), (9, 3, False)):
         tile = eps.epilogue_tile(256, 2, phased)
-        tiles = list(eps.epilogue_tiles_plain(2, n, tile, phased))
-        extent = n if phased else n ** 3
+        tiles = list(eps.epilogue_tiles_plain(2, nz, n, tile, phased))
+        extent = n if phased else nz * n * n
         assert all(0 < count <= tile and x0 + count <= extent for _, _, _, x0, count in tiles)
-        assert sum(count for *_, count in tiles) == 2 * n ** 3
+        assert sum(count for *_, count in tiles) == 2 * nz * n * n
+        if phased:  # every (b, z, y) row once, z over the slab's nz planes
+            rows = {(b, z, y) for b, z, y, _, _ in tiles}
+            assert rows == {(b, z, y) for b in range(2) for z in range(nz) for y in range(n)}
 
 
 @pytest.mark.parametrize("elt", [2, 4])
@@ -108,7 +122,13 @@ def test_design_is_chosen_by_shape():
     assert eps.pick_design(y_ext, True, normalize=True) == "persistent tma"
     scale8, shift8 = torch.ones(1, 128), torch.zeros(1, 128)
     got = eps.phased_normalize(swapped, scale8, shift8)
-    torch.testing.assert_close(got, torch.cat(phase_windows(swapped, n), dim=-1), rtol=0, atol=0)
+    torch.testing.assert_close(got, torch.cat(phase_windows(swapped), dim=-1), rtol=0, atol=0)
+    # depth slabs (nz + 1 < n + 1 planes): the strides still nest, TMA applies
+    slab = _y_ext(2, n, 128, n + 3, 3, nz=2)
+    assert eps.pick_design(slab, True) == "persistent tma"
+    assert eps.pick_design(slab[:, :, :, :n + 1], True) == "persistent tma"
+    assert eps.pick_design(slab.transpose(1, 2)[:, :3], True) == "persistent ldg"
+    assert eps.pick_design(slab[:, :2, :n, :n].contiguous(), False) == "persistent ldg"
 
 
 @pytest.mark.parametrize("bwd", [False, True])

@@ -25,7 +25,9 @@ uses its rows).
     rank 1, and takes the s2d-folded route).
 
 Also `entry.dryrun_multichip(2, "cpu")`. The rank program imports no
-JAX; JAX runs in this module's fixtures.
+JAX; JAX runs in this module's fixtures. The mesh's `space` axis (a crop's
+depth over ranks) is held in tests/test_torch_parallel_space.py and
+tests/test_torch_space_ops.py.
 """
 
 import numpy as np

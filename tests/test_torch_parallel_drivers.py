@@ -31,7 +31,10 @@ a hang fails a test.
     process writes it; the checkpoints load to the final parameters.
   * The losses' sums: the ratios equal the whole-batch formulas bitwise,
     the shards' sums add up to the whole batch's.
-  * The `space` axis and objects that are not a mesh raise.
+  * `make_mesh(n_space=2)` on the 2 ranks: a (1, 2) mesh, each rank's
+    depth slab from `batch_sharding(shard_space=True)`; what still raises:
+    `conv_stats` / `conv_epi` with `space=` (ROADMAP M9b), `shard_space`
+    without a mesh, objects that are not a mesh.
 """
 
 import json
@@ -46,7 +49,7 @@ from se_unet_airseg_tpu_torch import losses
 from se_unet_airseg_tpu_torch.infer import SlidingWindowRunner
 from se_unet_airseg_tpu_torch.io import write_nifti
 from se_unet_airseg_tpu_torch.models import SEUNet, SEUNetConfig
-from se_unet_airseg_tpu_torch.models.se_unet import _leaves, _tree_map, draw_dropout
+from se_unet_airseg_tpu_torch.models.se_unet import _leaves, _tree_map, apply_fast, draw_dropout
 from se_unet_airseg_tpu_torch.parallel import DataMesh, batch_sharding, make_mesh, spawn
 from se_unet_airseg_tpu_torch.pipeline.priors import save_lib_weights, save_skeletons_and_parses
 from se_unet_airseg_tpu_torch.train import (
@@ -165,12 +168,22 @@ def one_thread():
     torch.set_num_threads(n)
 
 
+def _mesh2_rank(mesh):
+    """`make_mesh(n_space=2)` over the same 2 ranks: its axes, and the
+    layout of a (2, 4, 1) batch with and without `shard_space`."""
+    m = make_mesh(n_space=2, devices=["cpu", "cpu"])
+    x = np.arange(8).reshape(2, 4, 1)
+    return {"shape": m.shape, "ranks": (m.data_rank, m.space_rank),
+            "slab": batch_sharding(m, shard_space=True)(x), "rows": batch_sharding(m)(x)}
+
+
 def _step_runs(mesh, tree):
     """On every rank: one sharded step (B=4), three replicated ones (B=3,
-    1, 3), and the out-of-memory run with its remat=True reference."""
+    1, 3), the out-of-memory run with its remat=True reference, and a
+    (1, 2) mesh."""
     return {"sharded": _steps(mesh, tree, [4]), "replicated": _steps(mesh, tree, [3, 1, 3]),
             "oom": _oom_rank(mesh, tree), "remat": _steps(mesh, tree, [4], True),
-            "error": _error_rank(mesh, tree)}
+            "error": _error_rank(mesh, tree), "mesh2": _mesh2_rank(mesh)}
 
 
 @pytest.fixture(scope="module")
@@ -432,12 +445,26 @@ def test_a_resumed_driver_on_a_mesh_with_replay_buckets(drivers):
         assert torch.equal(a, b)
 
 
-def test_space_axis_and_non_meshes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP M9"):
-        make_mesh(n_data=2, n_space=2)
-    with pytest.raises(NotImplementedError, match="space"):
+def test_space_axis_and_non_meshes_raise(step_runs):
+    """make_mesh(n_space=2) builds the (1, 2) mesh (rank = d * 2 + s) and
+    batch_sharding(shard_space=True) gives each rank its depth slab; what
+    still raises: conv_stats / conv_epi on a depth slab (ROADMAP M9b),
+    shard_space without a mesh, and objects that are not a mesh."""
+    ranks, _ = step_runs
+    x = np.arange(8).reshape(2, 4, 1)
+    for r, got in enumerate(ranks):
+        m = got["mesh2"]
+        assert m["shape"] == {"data": 1, "space": 2} and m["ranks"] == (0, r)
+        np.testing.assert_array_equal(m["slab"], x[:, 2 * r:2 * r + 2])
+        np.testing.assert_array_equal(m["rows"], x)
+    space = DataMesh(rank=0, size=2, device=torch.device("cpu"), backend="gloo", space_size=2)
+    for field in ("conv_stats", "conv_epi"):
+        cfg = SEUNetConfig(**{field: True})
+        with pytest.raises(NotImplementedError, match="M9b"):
+            apply_fast(_tree(), torch.zeros((1, 8, 16, 16, 2)), cfg=cfg, space=space)
+    with pytest.raises(ValueError, match="shard_space"):
         make_train_step(SEUNetConfig(), shard_space=True)
-    with pytest.raises(NotImplementedError, match="space"):
+    with pytest.raises(TypeError, match="DataMesh"):
         batch_sharding(object(), shard_space=True)
     for build in (lambda: make_train_step(SEUNetConfig(), mesh=object()),
                   lambda: batch_sharding(object()),

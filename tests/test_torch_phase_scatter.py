@@ -23,7 +23,7 @@ def test_phase_scatter_matches_phase_windows(n, co, dtype):
     y_ext = torch.from_numpy(np.random.default_rng(n * co).standard_normal(
         (b, m, m, m, 8 * co)).astype(np.float32))
     y, s1, s2 = pcs.phase_scatter_plain(y_ext.to(dtype), n, co)
-    win = torch.cat(ps2d.phase_windows(y_ext.to(dtype), n), dim=-1)
+    win = torch.cat(ps2d.phase_windows(y_ext.to(dtype)), dim=-1)
     assert y.shape == (b, n ** 3, 8 * co) and y.dtype == dtype
     torch.testing.assert_close(y, win.reshape(b, n ** 3, 8 * co), rtol=0, atol=0)
     ref = win.float()

@@ -136,11 +136,11 @@ def test_learning_rate_schedule_and_setter():
     group = state.optimizer.param_groups[0]
     assert group["betas"] == (0.9, 0.999) and group["eps"] == 1e-8
     assert group["weight_decay"] == 1e-2
-    # a mesh is a parallel.DataMesh (tests/test_torch_parallel*.py); the
-    # `space` axis is not ported
+    # a mesh is a parallel.DataMesh (tests/test_torch_parallel*.py), and
+    # the `space` axis needs one (tests/test_torch_parallel_space.py)
     with pytest.raises(TypeError, match="DataMesh"):
         make_train_step(SEUNetConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="space"):
+    with pytest.raises(ValueError, match="shard_space"):
         make_train_step(SEUNetConfig(), shard_space=True)
 
 
