@@ -6,7 +6,8 @@
 Needs one CUDA card and nvcc; exits non-zero without them. Phases:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off for
-   the float32 phases;
+   the float32 phases; `utils.device_summary()` and
+   `utils.pick_devices(1, 40.0)` (`devices`);
 2. build: nvcc builds the kernels from the six sources under csrc/,
    one nvcc per source, started together, into one library; the line
    reports ptxas's registers and spills of every kernel; for the
@@ -55,6 +56,17 @@ Needs one CUDA card and nvcc; exits non-zero without them. Phases:
    lumen label): one warm-up step, then TRAIN_STEPS timed steps; the
    launches must read 10/5/5/2 per step, every loss must be finite and
    the batch's loss under one fixed set of DropLayer draws must fall;
+8a. config train path: the stage-1 step under `conv_stats` and under
+   `conv_epi`. One float32 step of 16^3 crops, batch 2, on the card
+   against the CPU, same weights and DropLayer draws: the loss within
+   rtol 5e-3, each gradient leaf within 2e-2 of its norm, the launches
+   (K1/K8/K9/K6 7/5/3/2; K1/K2/K5/K10/K11/K6 10/5/5/3/5/2), as phase 7
+   does for the default configuration. Then `make_resilient_step` at
+   full width, bf16, remat off, on phase 8's crops, with cuDNN's default
+   TF32 (as `cli.train` runs): a warm-up, CT_STEPS timed steps (median of
+   the last 5); peak memory, the launches a step, every loss (falling
+   from the first to the last, and under one fixed set of draws), whether
+   the out-of-memory fallback engaged (`config_train_path`);
 8b. remat step: one step of phase 8's configuration with
    `SEUNetConfig(remat=True)` against the same step with remat off (the
    same weights, batch and DropLayer draws, each from a fresh AdamW
@@ -127,7 +139,10 @@ Needs one CUDA card and nvcc; exits non-zero without them. Phases:
    the unsharded step on the same batch and draws with cuDNN's
    deterministic algorithms (loss within rtol 1e-6, each gradient leaf
    within 1e-6 of its norm beyond the unsharded step's own run-to-run
-   spread, launches 10/5/5/2). Then two ranks sharing the card over gloo
+   spread, launches 10/5/5/2); the runner on that mesh over the phantom
+   (batch 8 on the one rank, bf16): one `all_gather_into_tensor` on NCCL
+   a tile batch (counted), launches 10/5 a tile batch, its trits equal to
+   main_path's. Then two ranks sharing the card over gloo
    (spawned; their times are not a scaling figure): three f32 stage-1
    steps at 32^3, global batch 4, 1 (replicated), 4 (the first against
    one process, both with cuDNN's deterministic algorithms: the loss
@@ -165,6 +180,17 @@ Needs one CUDA card and nvcc; exits non-zero without them. Phases:
    10/5 a tile batch, the scores within SP_SCORE_ATOL of the one-process
    runner's, at most SP_TRIT_FRACTION of the trits different from
    main_path's (`space_path`);
+9g. dry run: `entry.dryrun_multichip(4)`, 4 gloo ranks sharing the card
+   as a (data 2, space 2) mesh (not a scaling figure): the f32 stage-3
+   step of 16^3 crops and the runner (cube 32) against one process (the
+   loss, each gradient leaf against its norm, the scores), then the f32
+   eval forward of 2 crops of 128^3, each rank one crop's depth slab,
+   gathered over space and data: finite, within 1e-4 of one process's,
+   its seconds and each rank's peak memory; then the one-process half
+   again with every K1/K2/K5/K6 launch held against its plain version on
+   its float32 inputs and on a rank's part of them (half the crops, half
+   the depth), the epilogues within 1e-6 + 1e-5 |plain|, the pool
+   backward exactly (`dryrun_path`);
 10. conv_stats kernels: `phased_conv_stats` (the wgmma kernel, `design`
    "wgmma" on its lines) at the 5 phased and `dil2_conv_stats` (the
    halo-brick wgmma kernel, `design` "halo-brick wgmma", with its tile:
@@ -245,6 +271,7 @@ from se_unet_airseg_tpu_torch.cli import train as cli_train
 from se_unet_airseg_tpu_torch.cli import tree_parsing as tp_cli
 from se_unet_airseg_tpu_torch.data import tile_positions
 from se_unet_airseg_tpu_torch.data.splits import load_json_file
+from se_unet_airseg_tpu_torch.entry import FORWARD_ATOL, _dryrun, dryrun_multichip
 from se_unet_airseg_tpu_torch.infer import SlidingWindowRunner, engine
 from se_unet_airseg_tpu_torch.infer import sliding_window as psw
 from se_unet_airseg_tpu_torch.io import read_nifti, write_nifti
@@ -272,11 +299,13 @@ from se_unet_airseg_tpu_torch.train import (
     create_train_state,
     make_loss_fn,
     make_optimizer,
+    make_resilient_step,
     make_train_step,
 )
 from se_unet_airseg_tpu_torch.train import stages
 from se_unet_airseg_tpu_torch.train import step as pstep
 from se_unet_airseg_tpu_torch.train.checkpoint import _paths
+from se_unet_airseg_tpu_torch.utils import device_summary, pick_devices
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
@@ -374,6 +403,19 @@ SP_F32_LOSS_RTOL = 1e-5
 SP_F32_LEAF_RTOL = 5e-2
 SP_SCORE_ATOL = DP_SCORE_ATOL
 SP_TRIT_FRACTION = DP_TRIT_FRACTION
+# the one NCCL rank's runner runs main_path's batch of 8 on one rank:
+# the same tiles through the same kernels, so its trits must equal
+# main_path's
+NCCL_TRIT_BOUND = 0
+# config_train_path: the crop of the f32 check against the CPU (batch 2,
+# train_parity's bounds); the timed bf16 128^3 B=8 steps after a warm-up
+# (median of the last 5), under cuDNN's default TF32, as cli.train runs
+CT_CROP = 16
+CT_STEPS = 10
+# dryrun_path: the epilogue kernels against their plain versions on the
+# dry run's float32 inputs (tests/test_torch_cuda.py's float32 tolerance);
+# the pool backward exactly
+F32_EPI_ATOL, F32_EPI_RTOL = 1e-6, 1e-5
 
 
 def ptxas_report(log: str) -> dict:
@@ -417,6 +459,15 @@ STEP_LAUNCHES = counts(gathered_epilogue=10, phased_epilogue=5, phased_normalize
 CS_LAUNCHES = counts(gathered_epilogue=7, phased_conv_stats=5, dil2_conv_stats=3)
 REMAT_LAUNCHES = counts(gathered_epilogue=20, phased_epilogue=5, phased_normalize=5,
                         max_pool_s2d_bwd=2)
+# a train step under conv_stats: the forward's K8, K9 and K1 and the pool
+# backward (the K8/K9 backward is autograd of their plain versions, the
+# phased blocks take no K2/K5); under conv_epi: the forward's K10, K11, K1
+# and K2, the phased backward's K5 (its replay runs cuDNN's conv, the
+# dil-2 backward's too) and the pool backward
+CS_STEP_LAUNCHES = counts(gathered_epilogue=7, phased_conv_stats=5, dil2_conv_stats=3,
+                          max_pool_s2d_bwd=2)
+CE_STEP_LAUNCHES = counts(gathered_epilogue=10, phased_epilogue=5, phased_normalize=5,
+                          dil2_dense_conv_stats=3, phased_conv_ungathered=5, max_pool_s2d_bwd=2)
 CE_LAUNCHES = counts(gathered_epilogue=10, phased_epilogue=5, dil2_dense_conv_stats=3,
                      phased_conv_ungathered=5)
 
@@ -1128,17 +1179,20 @@ def norm_leaky_phase():
     return summary, launches
 
 
-def train_parity_phase():
+def train_parity_phase(cfg: SEUNetConfig | None = None, crop: int = 64,
+                       want: dict = STEP_LAUNCHES) -> dict:
     """One float32 stage-1 train step on the card (kernels) against the
-    same step on the CPU (plain versions): same weights, batch and
-    DropLayer draws."""
-    cfg = SEUNetConfig()
+    same step on the CPU (plain versions): same weights (seed 3), batch of
+    2 crops of `crop`^3 and DropLayer draws (seed 4), under `cfg` (default:
+    the default configuration); the card launches `want`, the CPU nothing.
+    Emits its line and returns it."""
+    cfg = cfg or SEUNetConfig()
     tree = SEUNet(cfg, generator=torch.Generator().manual_seed(3)).params_tree()
     gen = torch.Generator().manual_seed(4)
-    b, s = 2, 64
+    b, s = 2, crop
     batch = {"image": torch.rand((b, s, s, s, 2), generator=gen),
              "label": (torch.rand((b, s, s, s), generator=gen) > 0.7).float()}
-    draws = [torch.rand((b, 24), generator=gen), torch.rand((b, 12), generator=gen)]
+    draws = draw_dropout(b, cfg, gen)
     opt, _ = make_optimizer()
     step = make_train_step(cfg, stage=1)
     out = {}
@@ -1155,8 +1209,10 @@ def train_parity_phase():
         out[dev] = (loss, grads, params, dict(launch_counts), secs)
     (l_gpu, g_gpu, p_gpu, n_gpu, s_gpu), (l_cpu, g_cpu, p_cpu, n_cpu, s_cpu) = \
         out["cuda"], out["cpu"]
-    if n_gpu != STEP_LAUNCHES or any(n_cpu.values()):
-        raise AssertionError(f"f32 train step launched {n_gpu} on the card, {n_cpu} on the CPU")
+    config = [k for k in ("conv_stats", "conv_epi") if getattr(cfg, k)] or ["default"]
+    if n_gpu != want or any(n_cpu.values()):
+        raise AssertionError(f"f32 {config[0]} train step launched {n_gpu} on the card, "
+                             f"{n_cpu} on the CPU")
     # the dice loss averages over every voxel, so a gradient element is
     # far below the atol: each leaf is also held against its own norm,
     # |d|_2 <= 2e-2 |g_cpu|_2 + floor, the floor for the conv biases in
@@ -1164,22 +1220,24 @@ def train_parity_phase():
     floor = 1e-6 * max(float(r.norm()) for r in g_cpu)
     ratios = [float((a - r).norm() / r.norm()) for a, r in zip(g_gpu, g_cpu)
               if float(r.norm()) > floor]
-    emit({"train_parity": {
-        "crop": s, "batch": b, "dtype": "float32", "stage": 1, "launches_gpu": n_gpu,
-        "loss_gpu": l_gpu, "loss_cpu": l_cpu,
+    line = {
+        "config": config[0], "crop": s, "batch": b, "dtype": "float32", "stage": 1,
+        "launches_gpu": n_gpu, "loss_gpu": l_gpu, "loss_cpu": l_cpu,
         "grad_max_abs_diff": max(float((a - r).abs().max()) for a, r in zip(g_gpu, g_cpu)),
-        "grad_leaf_norm_ratio_max": max(ratios),
+        "grad_leaf_norm_ratio_max": max(ratios), "grad_worst_leaf": worst_leaf(g_gpu, g_cpu),
         "grad_leaf_max_abs_min": min(float(r.abs().max()) for r in g_cpu
                                      if float(r.norm()) > floor),
         "grad_leaves": len(g_cpu), "grad_leaves_zero_up_to_rounding": len(g_cpu) - len(ratios),
         "param_max_abs_diff": max(float((a - r).abs().max()) for a, r in zip(p_gpu, p_cpu)),
-        "step_s_gpu_first": s_gpu, "step_s_cpu": s_cpu}})
+        "step_s_gpu_first": s_gpu, "step_s_cpu": s_cpu}
+    emit({"train_parity": line})
     torch.testing.assert_close(torch.tensor(l_gpu), torch.tensor(l_cpu), rtol=5e-3, atol=5e-4)
     for a, r in zip(g_gpu, g_cpu):
         torch.testing.assert_close(a, r, rtol=5e-3, atol=5e-4)
         if not float((a - r).norm()) <= 2e-2 * float(r.norm()) + floor:
             raise AssertionError(f"a gradient leaf {tuple(r.shape)} differs by "
                                  f"{float((a - r).norm())} against its norm {float(r.norm())}")
+    return line
 
 
 def phantom_batch(vol: np.ndarray, lumen: torch.Tensor) -> dict:
@@ -1318,6 +1376,93 @@ def remat_phase(batch: dict, draws: list) -> None:
         raise AssertionError(f"remat step loss {on['loss']} against {off['loss']}")
     if not max(ratios) <= 2e-2:
         raise AssertionError(f"remat step gradients differ: leaf norm ratio {max(ratios)}")
+
+
+def config_train_full(name: str, batch: dict) -> dict:
+    """make_resilient_step(stage=1) under `name` at full width, bf16, remat
+    off, AdamW, on train_path's 8 phantom crops of 128^3, with cuDNN's
+    default TF32, as `cli.train` runs it (the script turns TF32 off for
+    its f32 checks): a warm-up step, then CT_STEPS timed steps (median of
+    the last 5). Peak memory over them, the launches per step, every
+    step's loss and the loss under one fixed set of DropLayer draws
+    before and after, and whether the out-of-memory fallback (remat)
+    engaged."""
+    cfg = SEUNetConfig(compute_dtype=torch.bfloat16, **{name: True})
+    tree = SEUNet(cfg, generator=torch.Generator().manual_seed(0)).cuda().params_tree()
+    state = create_train_state(tree, make_optimizer()[0])
+    del tree
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    fixed = draw_dropout(BATCH, cfg, torch.Generator(device="cuda").manual_seed(7))
+    loss_fn = make_loss_fn(cfg, stage=1)
+
+    def fixed_loss() -> float:
+        with torch.no_grad():
+            return float(loss_fn(state.params, batch, drop_draws=fixed)[0])
+
+    step = make_resilient_step(cfg, stage=1)
+    loss_before = fixed_loss()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                                    allow_tf32=True):
+        for i in range(1 + CT_STEPS):
+            if i == 1:
+                reset_launch_counts()
+            t0 = time.perf_counter()
+            state, aux = step(state, batch, gen)
+            losses.append(float(aux["loss"]))
+            step_s.append(time.perf_counter() - t0)
+    launches = {k: v / CT_STEPS for k, v in launch_counts.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    loss_after = fixed_loss()
+    fellback = step.fallback_active()
+    med = statistics.median(step_s[-5:])
+    out = {"crop": batch["label"].shape[1], "batch": batch["label"].shape[0],
+           "dtype": "bfloat16", "stage": 1, "remat": cfg.remat, "optimizer": "AdamW",
+           "cudnn_tf32": "default (on)", "steps": CT_STEPS, "warmup_s": step_s[0],
+           "step_s_runs": step_s[1:], "step_s": med, "patches_per_s": BATCH / med,
+           "peak_mem_gb": peak, "losses": losses, "fixed_draw_loss_before": loss_before,
+           "fixed_draw_loss_after": loss_after, "launches_per_step": launches,
+           "oom_fallback_engaged": fellback}
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_config_train(name: str, full: dict, want: dict) -> None:
+    """Raise unless the bf16 steps under `name` launched `want` a step
+    (remat's launches, if the fallback engaged, are printed, not pinned)
+    and their losses are finite and fall, step and fixed draws alike."""
+    if not full["oom_fallback_engaged"] and \
+            full["launches_per_step"] != {k: float(v) for k, v in want.items()}:
+        raise AssertionError(f"the bf16 {name} step launched {full['launches_per_step']} a "
+                             f"step, want {want}")
+    losses, before, after = (full["losses"], full["fixed_draw_loss_before"],
+                             full["fixed_draw_loss_after"])
+    if not all(np.isfinite(losses + [before, after])):
+        raise AssertionError(f"non-finite {name} train loss: {losses}, {before}, {after}")
+    if not (losses[-1] < losses[0] and after < before):
+        raise AssertionError(f"the {name} loss did not fall: steps {losses[0]} -> "
+                             f"{losses[-1]}, fixed draws {before} -> {after}")
+
+
+def config_train_path_phase(batch: dict) -> None:
+    """The stage-1 train step under conv_stats and under conv_epi: the f32
+    step of 2 crops of CT_CROP^3, card against CPU (`train_parity_phase`,
+    its bounds), then the full-size bf16 steps (`config_train_full`). The
+    train step's launches of K8-K11 come from here."""
+    line, wants = {}, {"conv_stats": CS_STEP_LAUNCHES, "conv_epi": CE_STEP_LAUNCHES}
+    for name, want in wants.items():
+        t0 = time.perf_counter()
+        line[name] = {"f32_parity": train_parity_phase(SEUNetConfig(**{name: True}), CT_CROP,
+                                                       want),
+                      "full": config_train_full(name, batch),
+                      "phase_wall_s": time.perf_counter() - t0}
+    emit({"config_train_path": line})
+    for name, want in wants.items():
+        check_config_train(name, line[name]["full"], want)
 
 
 class StepClock:
@@ -2159,7 +2304,8 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def nccl_one_rank(vol: np.ndarray, lumen: torch.Tensor, bare_step_s: float) -> dict:
+def nccl_one_rank(vol: np.ndarray, lumen: torch.Tensor, bare_step_s: float,
+                  trits: np.ndarray) -> dict:
     """One rank on NCCL (`env://` on 127.0.0.1): the sharded stage-1 step
     at 128^3, batch 8, bf16, against the unsharded step on the same batch
     and DropLayer draws, each from the weights of seed 0 and a fresh AdamW
@@ -2168,7 +2314,11 @@ def nccl_one_rank(vol: np.ndarray, lumen: torch.Tensor, bare_step_s: float) -> d
     each gradient leaf within 1e-6 of its norm beyond that spread, the
     launches 10/5/5/2 each. Then, with cuDNN's defaults, the sharded step's
     seconds: the median of DP_STEPS steps after a warm-up, against
-    train_path's bare step."""
+    train_path's bare step. Then the runner on the mesh (bf16, batch 8 on
+    the one rank) over the phantom: its tile batches gathered through
+    `all_gather_into_tensor` on NCCL (the calls counted: one a tile
+    batch), launches 10/5 a tile batch, and at most NCCL_TRIT_BOUND of its
+    trits different from main_path's."""
     cfg = SEUNetConfig(compute_dtype=torch.bfloat16)
     batch = phantom_batch(vol, lumen)
     draws = draw_dropout(BATCH, cfg, torch.Generator(device="cuda").manual_seed(6))
@@ -2206,8 +2356,24 @@ def nccl_one_rank(vol: np.ndarray, lumen: torch.Tensor, bare_step_s: float) -> d
                 step_s.append(time.perf_counter() - t0)
             del state, step, aux
             torch.cuda.empty_cache()
+            cfg_r, model = get_model(seed=0, compute_dtype=torch.bfloat16)
+            runner = SlidingWindowRunner(model, cfg_r, cube=128, step=64, batch=BATCH, mesh=mesh)
+            del model
+            reset_launch_counts()
+            with mock.patch.object(dist, "all_gather_into_tensor",
+                                   wraps=dist.all_gather_into_tensor) as gathers:
+                t0 = time.perf_counter()
+                got_trits = runner.predict_trits(vol, h_thresh=0.5, l_thresh=0.35,
+                                                 hu_shift=-1024.0)
+                torch.cuda.synchronize()
+                out["runner"] = {"s_first_volume": time.perf_counter() - t0,
+                                 "launches": dict(launch_counts),
+                                 "all_gather_into_tensor_calls": gathers.call_count}
+            del runner
+            torch.cuda.empty_cache()
         finally:
             dist.destroy_process_group()
+    runner = out.pop("runner")
     ref, got = out["unsharded"], out["sharded"]
     spread = max(leaf_ratios(out["unsharded_again"]["grads"], ref["grads"]))
     ratio = max(leaf_ratios(got["grads"], ref["grads"]))
@@ -2219,8 +2385,22 @@ def nccl_one_rank(vol: np.ndarray, lumen: torch.Tensor, bare_step_s: float) -> d
            "step_s_first": {k: v["s"] for k, v in out.items()}, "step_s_runs": step_s[1:],
            "step_s": statistics.median(step_s[1:]), "bare_step_s": bare_step_s,
            "step_over_bare_step": statistics.median(step_s[1:]) / bare_step_s}
+    n_batches = 48 // BATCH
+    n_trits = int((got_trits != trits).sum())
+    res["runner"] = {"shape": list(SHAPE), "cube": 128, "step": 64, "batch": BATCH,
+                     "dtype": "bfloat16", "tile_batches": n_batches, **runner,
+                     "trit_voxels_differing_main_path": n_trits,
+                     "trit_voxels_differing_bound": NCCL_TRIT_BOUND}
     for k, v in out.items():
         expect_launches(f"the one-rank NCCL check's {k} step", v["launches"], STEP_LAUNCHES)
+    expect_launches("the one-rank NCCL runner", runner["launches"],
+                    counts(gathered_epilogue=10 * n_batches, phased_epilogue=5 * n_batches))
+    if runner["all_gather_into_tensor_calls"] != n_batches:
+        raise AssertionError(f"the one-rank NCCL runner gathered "
+                             f"{runner['all_gather_into_tensor_calls']} times, want {n_batches}")
+    if not n_trits <= NCCL_TRIT_BOUND:
+        raise AssertionError(f"the one-rank NCCL runner's trits differ from main_path's at "
+                             f"{n_trits} voxels")
     if not abs(got["loss"] - ref["loss"]) <= 1e-6 * abs(ref["loss"]):
         raise AssertionError(f"one-rank NCCL step loss {got['loss']} against {ref['loss']}")
     if not ratio <= 1e-6 + spread:
@@ -2397,7 +2577,7 @@ def data_parallel_path_phase(vol: np.ndarray, lumen: torch.Tensor, branch: np.nd
     batch; the drivers' files written by rank 0 alone."""
     t_phase = time.perf_counter()
     line = {"ranks_share_one_card": "two ranks on one card: not a scaling figure",
-            "nccl_one_rank": nccl_one_rank(vol, lumen, bare_step_s)}
+            "nccl_one_rank": nccl_one_rank(vol, lumen, bare_step_s, trits)}
     b, s = DP_F32
     r = np.random.default_rng(4)
     f32_batch = {"image": r.random((b, s, s, s, 2), np.float32),
@@ -2783,6 +2963,115 @@ def space_path_phase(vol: np.ndarray, lumen: torch.Tensor, trits: np.ndarray,
     torch.cuda.empty_cache()
 
 
+# the kernels of the dry run's one-process half: (module, window planes
+# beyond the depth extent nz: 1 for the phased forms' (nz+1) grid)
+DRYRUN_KERNELS = {"gathered_epilogue": (eps, 0), "phased_epilogue": (eps, 1),
+                  "phased_normalize": (eps, 1), "max_pool_s2d_bwd": (ps2d, 0)}
+
+
+def _rank_part(kind: str, args: tuple, n_data: int, n_space: int) -> tuple | None:
+    """The part of one kernel call's inputs that one rank of an (n_data,
+    n_space) mesh gives the kernel: its data row's crops (at least one)
+    and its depth slab (nz / n_space planes, and the phased forms' extra
+    window plane); None when the depth does not split evenly. A
+    contiguous input stays contiguous, as the rank's own conv output is."""
+    ext = DRYRUN_KERNELS[kind][1]
+    y = args[0]
+    if (y.shape[1] - ext) % n_space:
+        return None
+    b, d = max(1, y.shape[0] // n_data), (y.shape[1] - ext) // n_space + ext
+    part = y[:b, :d].contiguous() if y.is_contiguous() else y[:b, :d]
+    if kind == "max_pool_s2d_bwd":
+        return (part,) + tuple(None if g is None else g[:b, :d].contiguous() for g in args[1:])
+    return (part,) + tuple(t[:b].contiguous() for t in args[1:3]) + tuple(args[3:])
+
+
+def held_dryrun_kernels(mesh: tuple) -> dict:
+    """The one-process half of `dryrun_multichip(4)` (`entry._dryrun`) on
+    the card with every launch of K1, K2, K5 and K6 held against its plain
+    version on the same float32 inputs, and again on the part of them that
+    one rank of the `mesh` (data, space) gives the kernel (`_rank_part`):
+    the epilogues within F32_EPI_ATOL + F32_EPI_RTOL |plain|, the pool
+    backward exactly. The sharded ranks' outputs are held against this
+    process's by dryrun_multichip. Returns per kernel the path's launches,
+    its input shapes and designs and the largest |kernel - plain|."""
+    stats = {k: {"launches": 0, "shapes": set(), "designs": set(), "max_abs_diff": 0.0}
+             for k in DRYRUN_KERNELS}
+
+    def hold(kind, kernel, plain, args, got=None):
+        with torch.no_grad():
+            got = kernel(*args) if got is None else got
+            ref = plain(*args)
+        d = (got.float() - ref.float()).abs()
+        tol = 0 if kind == "max_pool_s2d_bwd" else F32_EPI_ATOL + F32_EPI_RTOL * ref.abs()
+        st = stats[kind]
+        st["shapes"].add(tuple(args[0].shape))
+        if kind != "max_pool_s2d_bwd":
+            st["designs"].add(eps.pick_design(args[0], DRYRUN_KERNELS[kind][1] == 1,
+                                              kind == "phased_normalize"))
+        st["max_abs_diff"] = max(st["max_abs_diff"], float(d.max()))
+        if args[0].dtype != torch.float32 or got.shape != ref.shape or \
+                not bool((d <= tol).all()) or not torch.isfinite(got).all():
+            raise AssertionError(f"{kind} on the dry run's {args[0].dtype} input "
+                                 f"{tuple(args[0].shape)}: kernel disagrees with its plain "
+                                 f"version (max |d| {float(d.max())})")
+
+    def wrap(kind):
+        owner = DRYRUN_KERNELS[kind][0]
+        kernel, plain = getattr(owner, kind), getattr(owner, kind + "_plain")
+
+        def call(*args):
+            out = kernel(*args)
+            stats[kind]["launches"] += 1
+            hold(kind, kernel, plain, args, out)
+            part = _rank_part(kind, args, *mesh)
+            if part is not None:
+                hold(kind, kernel, plain, part)
+            return out
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for kind, (owner, _) in DRYRUN_KERNELS.items():
+            stack.enter_context(mock.patch.object(owner, kind, wrap(kind)))
+        _dryrun(None, mesh[0] * mesh[1], torch.device("cuda"))
+    torch.cuda.empty_cache()
+    return {k: {"launches": v["launches"], "shapes": sorted(map(list, v["shapes"])),
+                "designs": sorted(v["designs"]), "max_abs_diff": v["max_abs_diff"]}
+            for k, v in stats.items()}
+
+
+def dryrun_path_phase() -> None:
+    """`entry.dryrun_multichip(4)` on the card: 4 gloo ranks sharing it as a
+    (data 2, space 2) mesh (not a scaling figure). The f32 stage-3 step on
+    16^3 crops and the runner (cube 32) against one process: the loss
+    within SP_F32_LOSS_RTOL, each gradient leaf within SP_F32_LEAF_RTOL of
+    its norm, the parameters bitwise equal across the ranks, the scores
+    within FORWARD_ATOL; then the f32 eval forward of 2 crops of 128^3
+    split over data and space: finite and within FORWARD_ATOL of one
+    process (dryrun_multichip raises otherwise), with its seconds and each
+    rank's peak memory. Then the one-process half again with every kernel
+    launch held against its plain version (`held_dryrun_kernels`)."""
+    t0 = time.perf_counter()
+    out = dryrun_multichip(4)
+    out["phase_wall_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    try:
+        out["kernels_held"] = held_dryrun_kernels(tuple(out["mesh"]))
+    finally:
+        out["kernels_held_s"] = time.perf_counter() - t1
+        emit({"dryrun_path": out})
+    if out["forward"]["crop"] != 128 or out["mesh"] != [2, 2]:
+        raise AssertionError(f"the dry run ran {out['mesh']} at {out['forward']['crop']}^3")
+    if not (abs(out["loss"] - out["loss_one_process"]) <= SP_F32_LOSS_RTOL
+            * abs(out["loss_one_process"]) and out["ranks_equal"]
+            and out["grad_leaf_norm_ratio_max"] <= SP_F32_LEAF_RTOL
+            and out["score_max_abs_diff"] <= FORWARD_ATOL):
+        raise AssertionError(f"the dry run's step or runner differs from one process: {out}")
+    if not all(v["launches"] for v in out["kernels_held"].values()):
+        raise AssertionError(f"a kernel of the dry run was not launched: "
+                             f"{out['kernels_held']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2794,6 +3083,8 @@ def main() -> int:
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
+    emit({"devices": {"device_summary": device_summary(),
+                      "pick_devices(1, 40.0)": [str(d) for d in pick_devices(1, 40.0)]}})
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -2840,6 +3131,7 @@ def main() -> int:
     train_parity_phase()
     train_launches, bare_step_s, train_batch, train_draws, train_peak_gb = \
         train_path_phase(vol, lumen)
+    config_train_path_phase(train_batch)
     remat_phase(train_batch, train_draws)
     del train_batch, train_draws
     engine_path_phase(vol, lumen, branch)
@@ -2849,6 +3141,7 @@ def main() -> int:
     tree_parsing_phase(lumen)
     data_parallel_path_phase(vol, lumen, branch, trits, bare_step_s)
     space_path_phase(vol, lumen, trits, bare_step_s, train_peak_gb)
+    dryrun_path_phase()
     # each kernel's launches from the path that runs it
     launches = {**{k: main_launches[k] for k in EPILOGUE_TABLES},
                 **{k: train_launches[k] for k in ("phased_normalize", "max_pool_s2d_bwd")},

@@ -4,6 +4,7 @@ from .se_unet import (
     apply as se_unet_apply,
     apply_fast as se_unet_apply_fast,
     get_model,
+    num_params,
     prepare_fast_params,
 )
 from .torch_import import (
@@ -19,6 +20,7 @@ __all__ = [
     "get_model",
     "jax_params_from_torch",
     "load_torch_checkpoint",
+    "num_params",
     "params_from_state_dict",
     "prepare_fast_params",
     "se_unet_apply",

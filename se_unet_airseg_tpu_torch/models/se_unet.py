@@ -239,6 +239,13 @@ def _leaves(tree):
         yield tree
 
 
+def num_params(params) -> int:
+    """The element count of a parameter tree (`SEUNet.params_tree()`), or
+    of an `nn.Module`'s parameters (JAX `models/se_unet.py::num_params`)."""
+    leaves = params.parameters() if isinstance(params, nn.Module) else _leaves(params)
+    return sum(t.numel() for t in leaves)
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}

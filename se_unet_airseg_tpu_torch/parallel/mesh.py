@@ -26,9 +26,9 @@ and the runner call the few collectives they need from this module:
   * `spawn`: n ranks on one host over gloo, for the tests, `chip_smoke.py`
     and `entry.dryrun_multichip`.
 
-The collectives use `all_reduce`, `broadcast` and `barrier` only (what
-gloo offers for CUDA tensors); on NCCL `all_gather_rows` and
-`all_gather_slabs` use `all_gather_into_tensor`.
+The collectives are `all_reduce`, `broadcast`, `barrier` and, for
+`all_gather_rows` and `all_gather_slabs`, `all_gather_into_tensor` in
+its concatenated form: one call on every backend, gloo and NCCL alike.
 
 The `space` axis splits the depth of each crop over the n_space ranks of
 a data row: rank (d, s) holds planes [s D/n_space, (s+1) D/n_space) of
@@ -228,28 +228,21 @@ def all_sum(x: torch.Tensor) -> torch.Tensor:
     return _AllSum.apply(x)
 
 
-def _gather(x: torch.Tensor, n: int, index: int, group, backend: str) -> torch.Tensor:
-    """(n, *x.shape): the `x` of the n ranks of `group`, by their index in
-    it. Over gloo an all_reduce of a zero-filled buffer holding this
-    rank's part, exact up to the sign of a zero."""
+def _gather(x: torch.Tensor, n: int, group) -> torch.Tensor:
+    """(n * x.shape[0], ...): the `x` of the n ranks of `group`, in the
+    order of their index in it, concatenated along axis 0, bitwise. One
+    `all_gather_into_tensor` in the concatenated form, which gloo and NCCL
+    both take (gloo refuses the stacked (n, *x.shape) form)."""
     x = x.contiguous()
-    if n == 1:
-        return x.unsqueeze(0)
-    if backend == "nccl":
-        out = x.new_empty((n, *x.shape))
-        dist.all_gather_into_tensor(out, x, group=group)
-        return out
-    out = x.new_zeros((n, *x.shape))
-    out[index] = x
-    dist.all_reduce(out, group=group)
+    out = x.new_empty((n * x.shape[0], *x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=group)
     return out
 
 
 def all_gather_rows(x: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
     """(data_size * b, ...): the (b, ...) rows of every data row, in order
     (over the data group: the ranks of this rank's space index)."""
-    out = _gather(x, mesh.data_size, mesh.data_rank, mesh.data_group, mesh.backend)
-    return out.reshape(mesh.data_size * x.shape[0], *x.shape[1:])
+    return _gather(x, mesh.data_size, mesh.data_group)
 
 
 def all_gather_slabs(x: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
@@ -257,7 +250,7 @@ def all_gather_slabs(x: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
     rank of this data row, in order along axis 1."""
     if mesh.space_size == 1:
         return x
-    out = _gather(x, mesh.space_size, mesh.space_rank, mesh.space_group, mesh.backend)
+    out = _gather(x, mesh.space_size, mesh.space_group).view(mesh.space_size, *x.shape)
     return out.movedim(0, 1).reshape(x.shape[0], -1, *x.shape[2:])
 
 

@@ -1,7 +1,7 @@
 """Where the whole-volume runner's, or the train step's, time goes on the
 GPU.
 
-    python -m se_unet_airseg_tpu_torch.tools.profile_runner [--train | --conv-stats | --conv-epi] [--trace PATH]
+    python -m se_unet_airseg_tpu_torch.tools.profile_runner [--train] [--conv-stats | --conv-epi] [--trace PATH]
 
 Default: runs the main path of `chip_smoke.py` (full-width SE-UNet,
 random weights from seed 0, bf16, 128^3 tiles, step 64, batch 8) on a
@@ -13,7 +13,8 @@ under `SEUNetConfig(conv_stats=True)`; `--conv-epi`: under
 `--train`: the stage-1 train step (`make_train_step`, full width, bf16,
 AdamW, remat off) on a random batch of 8 crops of 128^3 (the `bench.py`
 train recipe: uniform image, label > 0.7): two warm-up steps, then one
-step under `torch.profiler`.
+step under `torch.profiler`; with `--conv-stats` or `--conv-epi`, the
+step under that configuration.
 
 Prints one JSON line with the host seconds of the call, the summed
 device time of its kernels and copies, the device's idle share over the
@@ -118,10 +119,10 @@ def _runner_call(conv_stats: bool, conv_epi: bool):
                                                         "conv_epi": conv_epi}
 
 
-def _train_call():
+def _train_call(conv_stats: bool, conv_epi: bool):
     """The stage-1 train step at 128^3, batch 8, warmed up by two steps:
     (call, description)."""
-    cfg = SEUNetConfig(compute_dtype=torch.bfloat16)
+    cfg = SEUNetConfig(compute_dtype=torch.bfloat16, conv_stats=conv_stats, conv_epi=conv_epi)
     tree = SEUNet(cfg, generator=torch.Generator().manual_seed(0)).cuda().params_tree()
     opt, _ = make_optimizer()
     holder = {"state": create_train_state(tree, opt)}
@@ -137,7 +138,8 @@ def _train_call():
 
     call()
     call()
-    return call, {"train_step": 1, "crop": 128, "batch": 8, "remat": cfg.remat}
+    return call, {"train_step": 1, "crop": 128, "batch": 8, "remat": cfg.remat,
+                  "conv_stats": conv_stats, "conv_epi": conv_epi}
 
 
 def main() -> int:
@@ -145,20 +147,20 @@ def main() -> int:
     ap.add_argument("--train", action="store_true",
                     help="profile one stage-1 train step instead of one volume")
     ap.add_argument("--conv-stats", action="store_true",
-                    help="profile the runner under SEUNetConfig(conv_stats=True)")
+                    help="profile the runner (or step) under SEUNetConfig(conv_stats=True)")
     ap.add_argument("--conv-epi", action="store_true",
-                    help="profile the runner under SEUNetConfig(conv_epi=True)")
+                    help="profile the runner (or step) under SEUNetConfig(conv_epi=True)")
     ap.add_argument("--trace", type=Path, help="keep the chrome trace here")
     args = ap.parse_args()
-    if args.train + args.conv_stats + args.conv_epi > 1:
-        ap.error("--train, --conv-stats and --conv-epi each profile one path; pick one")
+    if args.conv_stats and args.conv_epi:
+        ap.error("--conv-stats and --conv-epi are two configurations; pick one")
     if not torch.cuda.is_available():
         print("profile_runner: no CUDA device", file=sys.stderr)
         return 1
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    call, what = _train_call() if args.train else _runner_call(args.conv_stats, args.conv_epi)
+    call, what = (_train_call if args.train else _runner_call)(args.conv_stats, args.conv_epi)
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

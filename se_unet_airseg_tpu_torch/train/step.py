@@ -342,10 +342,14 @@ def make_resilient_step(cfg: SEUNetConfig = SEUNetConfig(), stage: int = 1, mesh
     rank ran out of memory, so all ranks fall back and retry together.
     Under `shard_space` that joint fallback holds only when every rank
     of a space row runs out of memory at the same exchange: a rank that
-    fails alone inside the forward or backward leaves the others of its
-    row in a halo exchange until the group's timeout, after which they
-    fail with another error, and every rank raises RuntimeError instead
-    of falling back. `_make_step` is an injection point for tests."""
+    fails alone inside the forward or backward waits in the loss sum
+    while the others of its row wait in a halo exchange, each until the
+    group's timeout; then every rank raises a RuntimeError that is not an
+    out-of-memory error (the loss sum's timeout on the failed rank, the
+    exchange's timeout or closed connection on the others), none falls
+    back, and no parameter or optimizer state moves
+    (tests/test_torch_space_ops.py). `_make_step` is an injection point
+    for tests."""
     make = _make_step or make_train_step
     holder = {"fn": make(cfg, stage, mesh, shard_space, fast), "fellback": False}
 

@@ -1,3 +1,5 @@
-from .devices import resolve_device
+from .devices import device_summary, pick_devices, resolve_device
+from .profiling import Timer, device_trace, time_report
 
-__all__ = ["resolve_device"]
+__all__ = ["Timer", "device_summary", "device_trace", "pick_devices", "resolve_device",
+           "time_report"]

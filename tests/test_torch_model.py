@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from se_unet_airseg_tpu.models import SEUNetConfig as JaxConfig, init_params
+from se_unet_airseg_tpu.models import num_params as jax_num_params
 from se_unet_airseg_tpu.models.se_unet import apply as jax_apply
 from se_unet_airseg_tpu.models.se_unet import apply_fast as jax_apply_fast
 from se_unet_airseg_tpu.models.torch_import import params_from_state_dict as jax_from_sd
@@ -23,6 +24,7 @@ from se_unet_airseg_tpu_torch.models import (
     SEUNet,
     SEUNetConfig,
     get_model,
+    num_params,
     prepare_fast_params,
     se_unet_apply,
     se_unet_apply_fast,
@@ -150,6 +152,15 @@ def test_module_carries_reference_state_dict_names(weights):
     assert "ec1.conv_se2.weight" not in sd and "ec33.conv1.bias" not in sd
     assert sd["ec1.conv1.weight"].shape == (8, 2, 3, 3, 3)
     assert set(sd) == set(state_dict_from_jax_params(weights[0]))
+
+
+def test_num_params_is_jax_count(weights):
+    """`num_params` of the bridged tree equals JAX's count of the same
+    weights, and of an `SEUNet` its parameters' element count."""
+    jp, tree = weights
+    model = SEUNet(SEUNetConfig())
+    assert num_params(tree) == jax_num_params(jp) == num_params(model)
+    assert num_params(model) == sum(p.numel() for p in model.parameters())
 
 
 def test_init_is_seeded_by_generator():

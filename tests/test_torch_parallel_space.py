@@ -251,8 +251,9 @@ def test_space_sharded_forwards_match_one_process(runs, fwd):
 
 def test_dryrun_multichip_with_the_space_axis():
     """`entry.dryrun_multichip(4)` (JAX `__graft_entry__.dryrun_multichip`):
-    a (2, 2) mesh, the stage-3 step and the runner split over space, against
-    one process."""
+    a (2, 2) mesh, the stage-3 step and the runner split over space, then
+    the eval forward of 2 crops split over data and space (32^3 on the
+    CPU, 128^3 on the card), against one process."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
@@ -262,4 +263,11 @@ def test_dryrun_multichip_with_the_space_axis():
     assert out["mesh"] == [2, 2] and out["ranks_equal"]
     np.testing.assert_allclose(out["loss"], out["loss_one_process"], rtol=1e-6)
     assert out["param_max_abs_diff"] <= 2.5e-4  # Adam's first step, as above
+    assert out["grad_leaf_norm_ratio_max"] <= F32_LEAF_RTOL
     assert out["score_max_abs_diff"] <= FWD_ATOL
+    fwd = out["forward"]
+    assert (fwd["crop"], fwd["batch"], fwd["dtype"]) == (32, 2, "float32")
+    assert fwd["finite"] and fwd["ranks_equal"] and 0 < fwd["mean"] < 1
+    assert fwd["bound"] == 1e-4 and fwd["max_abs_diff"] <= fwd["bound"]
+    assert len(fwd["seconds_ranks"]) == 4 and fwd["seconds_one_process"] > 0
+    assert fwd["peak_mem_gb_ranks"] == [None] * 4  # not measured on the CPU

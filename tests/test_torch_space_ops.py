@@ -27,9 +27,16 @@ tests compare them.
   * K1/K2/K5's plain versions on a depth slab against the cube's slab;
   * what raises: a depth that does not split, `conv_stats` / `conv_epi`
     with `space=` (ROADMAP M9b), a runner cube that does not split;
+  * `all_gather_rows` over the default group and `all_gather_slabs` over
+    the space group (one `all_gather_into_tensor`, the call NCCL runs):
+    bitwise the ranks' parts in order, a -0.0 and NaN payloads included;
   * an error planted in one rank's forward of the depth-sharded step, with
     the groups' timeout cut to GROUP_TIMEOUT_S: every rank raises, within
-    a few timeouts, none hangs.
+    a few timeouts, none hangs;
+  * an out-of-memory error planted in one rank's forward of
+    `make_resilient_step(shard_space=True)` after its first halo
+    exchanges, with the same cut: what each rank raises, that no rank
+    falls back to remat, that no parameter or AdamW state moves.
 """
 
 import datetime
@@ -49,8 +56,20 @@ from se_unet_airseg_tpu_torch.models.se_unet import _tree_map, apply, apply_fast
 from se_unet_airseg_tpu_torch.ops import epilogue_s2d as eps
 from se_unet_airseg_tpu_torch.ops.resize import _interp_matrix, slab_matrix, upsample_trilinear
 from se_unet_airseg_tpu_torch.ops.s2d import upsample_to_s2d
-from se_unet_airseg_tpu_torch.parallel import DataMesh, halo, space_sum, spawn
-from se_unet_airseg_tpu_torch.train import create_train_state, make_optimizer, make_train_step
+from se_unet_airseg_tpu_torch.parallel import (
+    DataMesh,
+    all_gather_rows,
+    all_gather_slabs,
+    halo,
+    space_sum,
+    spawn,
+)
+from se_unet_airseg_tpu_torch.train import (
+    create_train_state,
+    make_optimizer,
+    make_resilient_step,
+    make_train_step,
+)
 
 N_SPACE = 3
 HALOS = [(1, 1), (1, 2), (2, 0)]
@@ -135,6 +154,15 @@ def _fwd_bwd(fn, inputs, params, mesh, space, seed):
     return [o.detach() for o in outs], [x.grad for x in xs], dps
 
 
+def _gather_part(rank: int) -> torch.Tensor:
+    """Rank `rank`'s (2, 3, 4) float32 part of the gather check: seeded
+    values, a -0.0 and a NaN whose payload names the rank."""
+    t = _rand((2, 3, 4), 90 + rank, torch.float32)
+    t[0, 0, 0] = -0.0
+    t.view(torch.int32)[1, 2, 3] = 0x7FC00000 | (rank + 1)
+    return t
+
+
 def _ops_rank(mesh) -> dict:
     """Every piece on this rank's slab and on the whole, on the (1, 3)
     mesh and, for ranks 0 and 1, the (1, 2) mesh of their own."""
@@ -142,6 +170,12 @@ def _ops_rank(mesh) -> dict:
     mesh2 = DataMesh(mesh.rank, 2, mesh.device, mesh.backend, space_size=2,
                      space_group=pair) if mesh.rank < 2 else None
     out = {"rank": mesh.rank, "halo": {}, "space_sum": None, "upsample": {}, "blocks": {}}
+    part = _gather_part(mesh.rank)
+    out["gather"] = {"rows": (all_gather_rows(part, DataMesh(mesh.rank, N_SPACE, mesh.device,
+                                                              mesh.backend)),
+                              torch.cat([_gather_part(r) for r in range(N_SPACE)])),
+                     "slabs": (all_gather_slabs(part, mesh),
+                               torch.cat([_gather_part(r) for r in range(N_SPACE)], dim=1))}
     s, nz = mesh.space_rank, 2
     x = _rand((2, nz * N_SPACE, 3, 2, 2), 11)
     for lo, hi in HALOS:
@@ -213,6 +247,53 @@ def _error_rank(mesh) -> dict:
     return {"raised": raised, "seconds": time.perf_counter() - t0}
 
 
+def _oom_rank(mesh) -> dict:
+    """make_resilient_step(shard_space=True) on the depth-sharded stage-1
+    step at 16^3 with a torch.cuda.OutOfMemoryError raised in rank 1's
+    first phased block (after the gathered blocks' halo exchanges) of
+    every step it builds; the groups' timeout cut to GROUP_TIMEOUT_S."""
+    cut = datetime.timedelta(seconds=GROUP_TIMEOUT_S)
+    for g in (None, mesh.space_group):
+        _set_pg_timeout(cut, g)
+    r = np.random.default_rng(0)
+    batch = {"image": r.random((1, 16, 16, 16, 2), np.float32),
+             "label": (r.random((1, 16, 16, 16)) > 0.7).astype(np.float32)}
+    tree = SEUNet(SEUNetConfig(), generator=torch.Generator().manual_seed(3)).params_tree()
+    before = [t.detach().clone() for t in pm._leaves(tree)]
+    state = create_train_state(tree, make_optimizer()[0])
+    real, built = pm._sse_block_s2d_phased, []
+
+    def planted(*a, **k):
+        if mesh.space_rank == 1:
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory (planted)")
+        return real(*a, **k)
+
+    def make(cfg, stage, mesh_, shard_space, fast):
+        built.append(cfg.remat)
+        inner = make_train_step(cfg, stage, mesh_, shard_space, fast)
+
+        def planted_step(*a, **kw):
+            with mock.patch.object(pm, "_sse_block_s2d_phased", planted):
+                return inner(*a, **kw)
+        return planted_step
+
+    step = make_resilient_step(SEUNetConfig(), stage=1, mesh=mesh, shard_space=True,
+                               _make_step=make)
+    mesh.barrier()  # both ranks enter the step together
+    t0 = time.perf_counter()
+    try:
+        step(state, batch, torch.Generator().manual_seed(1))
+        raised = None
+    except Exception as e:  # what every rank raised is the result
+        raised = {"type": type(e).__name__, "runtime": isinstance(e, RuntimeError),
+                  "oom": isinstance(e, torch.cuda.OutOfMemoryError), "msg": str(e)[:200]}
+    return {"raised": raised, "seconds": time.perf_counter() - t0, "built": built,
+            "fellback": step.fallback_active(), "step": state.step,
+            "adam_state": len(state.optimizer.state),
+            "params_unchanged": all(torch.equal(a, b) for a, b in
+                                    zip(before, pm._leaves(state.params)))}
+
+
 @pytest.fixture(scope="module")
 def ranks():
     n = torch.get_num_threads()
@@ -225,6 +306,14 @@ def ranks():
 
 def _close(got, want, tol, what):
     torch.testing.assert_close(got, want, **tol, msg=what)
+
+
+@pytest.mark.parametrize("kind", ["rows", "slabs"])
+def test_gather_is_the_ranks_parts_bitwise(ranks, kind):
+    for r in ranks:
+        got, want = r["gather"][kind]
+        assert got.shape == want.shape
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.parametrize("lo,hi", HALOS)
@@ -351,4 +440,26 @@ def test_an_error_in_one_ranks_forward_raises_on_every_rank():
     assert out[1]["raised"] is not None and out[0]["raised"] is not None
     assert out[1]["raised"][0] in ("ValueError", "RuntimeError", "DistBackendError")
     for r in out:
+        assert r["seconds"] < 6 * GROUP_TIMEOUT_S + 10
+
+
+def test_an_out_of_memory_error_on_one_space_rank_raises_without_fallback():
+    """Rank 1 runs out of memory in its first phased block, after the
+    gathered blocks' halo exchanges, and waits in the loss sum; rank 0
+    waits in that block's halo exchange. After the cut timeout rank 1
+    raises the loss sum's timeout and rank 0 the exchange's timeout or
+    closed connection: both RuntimeErrors, neither an out-of-memory
+    error, so neither falls back to remat. No parameter moves and AdamW
+    takes no step, within a few timeouts."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = spawn(_oom_rank, 2, n_space=2, timeout_s=120)
+    finally:
+        torch.set_num_threads(n)
+    for r in out:
+        assert r["raised"] is not None and r["raised"]["runtime"], r["raised"]
+        assert not r["raised"]["oom"], r["raised"]
+        assert r["built"] == [False] and not r["fellback"]
+        assert r["step"] == 0 and r["adam_state"] == 0 and r["params_unchanged"]
         assert r["seconds"] < 6 * GROUP_TIMEOUT_S + 10

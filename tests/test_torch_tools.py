@@ -20,6 +20,8 @@ from se_unet_airseg_tpu.utils import profiling as jprof
 from se_unet_airseg_tpu_torch.cli import preprocess as pprep_cli
 from se_unet_airseg_tpu_torch.cli import write_json as pjson_cli
 from se_unet_airseg_tpu_torch.entry import entry
+from se_unet_airseg_tpu_torch import utils as putils
+from se_unet_airseg_tpu_torch.utils import devices as pdev
 from se_unet_airseg_tpu_torch.utils import profiling as pprof
 
 from test_cli_entrypoints import _raw_case
@@ -77,6 +79,39 @@ def test_profiling_helpers_match_jax(tmp_path):
     assert prof.key_averages()
     trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
     assert trace["traceEvents"]
+
+
+def test_utils_exports_the_jax_names():
+    assert {"Timer", "time_report", "device_trace", "pick_devices",
+            "device_summary", "resolve_device"} <= set(putils.__all__)
+    assert putils.Timer is pprof.Timer and putils.device_trace is pprof.device_trace
+
+
+def _fake_cards(monkeypatch, free_gb):
+    """torch.cuda as a machine of len(free_gb) 80 GB cards with those GB
+    free."""
+    monkeypatch.setattr(pdev.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(pdev.torch.cuda, "device_count", lambda: len(free_gb))
+    monkeypatch.setattr(pdev.torch.cuda, "mem_get_info",
+                        lambda i: (int(free_gb[i] * 1e9), int(80e9)))
+    monkeypatch.setattr(pdev.torch.cuda, "get_device_name", lambda i: "Fake H100")
+
+
+def test_pick_devices_reads_free_memory(monkeypatch):
+    _fake_cards(monkeypatch, [70.0, 12.5])
+    assert pdev.pick_devices(2) == [torch.device("cuda", 0), torch.device("cuda", 1)]
+    assert pdev.pick_devices(1, 40) == [torch.device("cuda", 0)]
+    with pytest.raises(RuntimeError, match="need 2 CUDA devices with 40"):
+        pdev.pick_devices(2, 40)
+    assert pdev.device_summary() == ("cuda:0 Fake H100 70.0/80.0 GB free, "
+                                     "cuda:1 Fake H100 12.5/80.0 GB free")
+
+
+def test_pick_devices_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(pdev.torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="have none"):
+        pdev.pick_devices(1)
+    assert pdev.device_summary() == "cpu"
 
 
 def test_entry_runs_the_bf16_fast_forward():
