@@ -1,0 +1,10 @@
+"""The 3x3x3 convs' least time (operations at 989 TFLOP/s against bytes
+once at 3.35 TB/s, conv by conv, counted from the published layers) over
+the device time of every conv kernel in the profiled slice (whatever an
+aten convolution op or its backward launched, and K8-K11), in percent."""
+
+from portbench.metrics._shares import conv_roofline
+
+
+def read(rec):
+    return conv_roofline(rec, "infer")
