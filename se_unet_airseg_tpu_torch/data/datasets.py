@@ -7,6 +7,12 @@ volume contributes `batch_size` crops forming one device batch.
 Torch DataLoader workers are replaced with a thread prefetcher
 (`Prefetcher`) that crops the next volume while the card runs a step.
 
+Under a profiler session (`utils.profiling`) each volume's batch is a
+`data.batch` span with its parts under it: `data.read` (the NIfTI and
+.npy files read and decompressed), `data.augment` (each crop cut, flipped
+and rotated) and `data.finalize` (each crop's windows and LIB power, and
+the stacking); the consumer's wait on the Prefetcher is `data.wait`.
+
 Batches are dicts of numpy arrays in the train-step format (the stage
 drivers upload a copy per step and keep the host arrays for the online
 hard-mining cache):
@@ -31,6 +37,7 @@ import threading
 import numpy as np
 
 from ..io import read_nifti
+from ..utils.profiling import span
 from .augment import augment_crops
 from .samplers import (
     centered_random_crop,
@@ -56,13 +63,24 @@ def _load_volume(data_root: str, name: str):
     """CT in raw HU (float32) + binary label (uint8). Windowing and
     float casts happen per CROP, not per volume — the host does
     cube^3-sized work per sample instead of full-volume passes."""
-    img = read_nifti(os.path.join(data_root, "data", name + "data_cut.nii.gz"))
-    hu = img.array.astype(np.float32) - 1024.0
-    label = read_nifti(
-        os.path.join(data_root, "mask", name + "mask_cut.nii.gz")
-    ).array
-    label = (label > 0).astype(np.uint8)
+    with span("data.read"):
+        img = read_nifti(os.path.join(data_root, "data", name + "data_cut.nii.gz"))
+        hu = img.array.astype(np.float32) - 1024.0
+        label = read_nifti(
+            os.path.join(data_root, "mask", name + "mask_cut.nii.gz")
+        ).array
+        label = (label > 0).astype(np.uint8)
     return hu, label
+
+
+def _load_npy(path: str) -> np.ndarray:
+    with span("data.read"):
+        return np.load(path)
+
+
+def _read_array(path: str) -> np.ndarray:
+    with span("data.read"):
+        return read_nifti(path).array
 
 
 def _powered_weight(lib_weight, label, expo):
@@ -78,25 +96,56 @@ def _finalize_crop(c: dict, expo: float) -> dict:
     random-power LIB weight (identical values to the reference's
     full-volume formulation — windowing and pow are pointwise and
     commute with crop/flip/rotate)."""
-    img, img2 = _window_pair(c.pop("hu"))
-    c["img"], c["img2"] = img, img2
-    if "lib" in c:
-        c["weight"] = _powered_weight(c.pop("lib"), c["label"], expo)
+    with span("data.finalize"):
+        img, img2 = _window_pair(c.pop("hu"))
+        c["img"], c["img2"] = img, img2
+        if "lib" in c:
+            c["weight"] = _powered_weight(c.pop("lib"), c["label"], expo)
     return c
 
 
 def _to_batch(crops: list[dict]) -> dict:
-    keys = crops[0].keys()
-    out = {}
-    for k in keys:
-        arr = np.stack([c[k] for c in crops]).astype(np.float32)
-        out[k] = arr
-    if "img" in out and "img2" in out:
-        out["image"] = np.stack([out.pop("img"), out.pop("img2")], axis=-1)
+    with span("data.finalize"):
+        keys = crops[0].keys()
+        out = {}
+        for k in keys:
+            arr = np.stack([c[k] for c in crops]).astype(np.float32)
+            out[k] = arr
+        if "img" in out and "img2" in out:
+            out["image"] = np.stack([out.pop("img"), out.pop("img2")], axis=-1)
     return out
 
 
-class Stage1Crops:
+def _crop_batch(pick, n: int, aug: bool, rng, expo: float) -> dict:
+    """`n` crops, each cut by `pick()` and, with `aug`, flipped and
+    rotated, then finalized and stacked into one batch."""
+    crops = []
+    for _ in range(n):
+        with span("data.augment"):
+            c = pick()
+            if aug:
+                vals = augment_crops(list(c.values()), rng)
+                c = dict(zip(c.keys(), vals))
+        crops.append(_finalize_crop(c, expo))
+    return _to_batch(crops)
+
+
+class _VolumeBatches:
+    """One batch of crops per training volume, the volumes in an order
+    drawn per epoch."""
+
+    def __len__(self):
+        return len(self.names)
+
+    def __iter__(self):
+        order = self.rng.permutation(len(self.names))
+        for i in order:
+            with span("data.batch"):
+                batch = self.sample_volume(self.names[i])
+            yield batch
+
+
+class Stage1Crops(_VolumeBatches):
     """Uniform random crops + LIB weights (reference CropSegData,
     data.py:632-715)."""
 
@@ -107,32 +156,18 @@ class Stage1Crops:
         self.batch_size, self.cube, self.aug = batch_size, cube, aug
         self.rng = np.random.default_rng(seed)
 
-    def __len__(self):
-        return len(self.names)
-
-    def __iter__(self):
-        order = self.rng.permutation(len(self.names))
-        for i in order:
-            yield self.sample_volume(self.names[i])
-
     def sample_volume(self, name: str) -> dict:
         hu, label = _load_volume(self.data_root, name)
-        lib = np.load(os.path.join(self.file_root, "LIB_weight", name + ".npy"))
+        lib = _load_npy(os.path.join(self.file_root, "LIB_weight", name + ".npy"))
         expo = self.rng.random() + 2.0
         vols = {"hu": hu, "label": label, "lib": lib}
-        crops = []
-        for _ in range(self.batch_size):
-            c = centered_random_crop(vols, self.cube, self.rng)
-            if self.aug:
-                vals = augment_crops(list(c.values()), self.rng)
-                c = dict(zip(c.keys(), vals))
-            crops.append(_finalize_crop(c, expo))
-        batch = _to_batch(crops)
+        batch = _crop_batch(lambda: centered_random_crop(vols, self.cube, self.rng),
+                            self.batch_size, self.aug, self.rng, expo)
         batch["name"] = name
         return batch
 
 
-class Stage2Crops:
+class Stage2Crops(_VolumeBatches):
     """Hard-mining crops guided by stage-1 misses (reference
     AirwayHMData, data.py:254-408). `hard_ratio` is owned by the
     CurriculumScheduler and set by the stage driver each epoch."""
@@ -146,26 +181,16 @@ class Stage2Crops:
         self.rng = np.random.default_rng(seed)
         self.hard_ratio = 0.4  # reference data.py:273-281
 
-    def __len__(self):
-        return len(self.names)
-
-    def __iter__(self):
-        order = self.rng.permutation(len(self.names))
-        for i in order:
-            yield self.sample_volume(self.names[i])
-
     def _load_priors(self, name):
-        pred = read_nifti(os.path.join(self.pred_path, name + ".nii.gz")).array
+        pred = _read_array(os.path.join(self.pred_path, name + ".nii.gz"))
         if pred.ndim > 3:
             pred = pred[0]
-        skel = read_nifti(
-            os.path.join(self.file_root, "skeleton", name + "mask_cut.nii.gz")
-        ).array
+        skel = _read_array(os.path.join(self.file_root, "skeleton", name + "mask_cut.nii.gz"))
         return (pred > 0).astype(np.uint8), (skel > 0).astype(np.uint8)
 
     def sample_volume(self, name: str) -> dict:
         hu, label = _load_volume(self.data_root, name)
-        lib = np.load(os.path.join(self.file_root, "LIB_weight", name + ".npy"))
+        lib = _load_npy(os.path.join(self.file_root, "LIB_weight", name + ".npy"))
         expo = self.rng.random() + 2.0
         pred1, skel = self._load_priors(name)
 
@@ -177,22 +202,18 @@ class Stage2Crops:
         loc_skeleton = np.where((skel != 0) & (pred1 == 0))
 
         vols = {"hu": hu, "label": label, "lib": lib}
-        crops = []
-        for _ in range(self.batch_size):
+
+        def pick():
             if self.rng.random() < self.hard_ratio:
-                c = hard_sample(vols, loc_skeleton, loc_small, self.cube, self.rng)
-            else:
-                c = random_crop(vols, self.cube, self.rng)
-            if self.aug:
-                vals = augment_crops(list(c.values()), self.rng)
-                c = dict(zip(c.keys(), vals))
-            crops.append(_finalize_crop(c, expo))
-        batch = _to_batch(crops)
+                return hard_sample(vols, loc_skeleton, loc_small, self.cube, self.rng)
+            return random_crop(vols, self.cube, self.rng)
+
+        batch = _crop_batch(pick, self.batch_size, self.aug, self.rng, expo)
         batch["name"] = name
         return batch
 
 
-class Stage3Crops:
+class Stage3Crops(_VolumeBatches):
     """Break-point-guided crops (reference AirwayHMData3,
     data.py:410-584): weight = LIB + 0.6*BR, extra skeleton channel,
     break/skeleton/small/random sampling mix."""
@@ -210,27 +231,17 @@ class Stage3Crops:
         self.hard_ratio = 0.8  # reference data.py:422-429
         self.break_ratio = 0.625
 
-    def __len__(self):
-        return len(self.names)
-
-    def __iter__(self):
-        order = self.rng.permutation(len(self.names))
-        for i in order:
-            yield self.sample_volume(self.names[i])
-
     def sample_volume(self, name: str) -> dict:
         hu, label = _load_volume(self.data_root, name)
-        lib = np.load(os.path.join(self.file_root, "LIB_weight", name + ".npy"))
-        br_w = np.load(os.path.join(self.br_weight_path, name + ".npy"))
+        lib = _load_npy(os.path.join(self.file_root, "LIB_weight", name + ".npy"))
+        br_w = _load_npy(os.path.join(self.br_weight_path, name + ".npy"))
         lib_mix = lib.astype(np.float32) + 0.6 * br_w.astype(np.float32)
         expo = self.rng.random() + 2.0
-        br_skel = np.load(os.path.join(self.br_skel_path, name + ".npy"))
-        pred2 = read_nifti(os.path.join(self.pred2_path, name + ".nii.gz")).array
+        br_skel = _load_npy(os.path.join(self.br_skel_path, name + ".npy"))
+        pred2 = _read_array(os.path.join(self.pred2_path, name + ".nii.gz"))
         if pred2.ndim > 3:
             pred2 = pred2[0]
-        skel = read_nifti(
-            os.path.join(self.file_root, "skeleton", name + "mask_cut.nii.gz")
-        ).array
+        skel = _read_array(os.path.join(self.file_root, "skeleton", name + "mask_cut.nii.gz"))
         skel = (skel > 0).astype(np.uint8)
 
         loc_small = small_airway_sampler(label, skel, self.rng)  # see Stage2
@@ -238,24 +249,18 @@ class Stage3Crops:
         loc_break = tuple(br_skel)
 
         vols = {"hu": hu, "label": label, "lib": lib_mix, "skel": skel}
-        crops = []
-        for _ in range(self.batch_size):
+
+        def pick():
             if self.rng.random() < self.hard_ratio:
                 if self.rng.random() < self.break_ratio and len(loc_break[0]) != 0:
-                    c = location_crop(vols, loc_break, self.cube, self.rng)
-                elif self.rng.random() < 0.5 and (p := loc_small()) is not None:
-                    c = point_crop(vols, p, self.cube, self.rng)
-                elif len(loc_skeleton[0]) != 0:
-                    c = location_crop(vols, loc_skeleton, self.cube, self.rng)
-                else:
-                    c = random_crop(vols, self.cube, self.rng)
-            else:
-                c = random_crop(vols, self.cube, self.rng)
-            if self.aug:
-                vals = augment_crops(list(c.values()), self.rng)
-                c = dict(zip(c.keys(), vals))
-            crops.append(_finalize_crop(c, expo))
-        batch = _to_batch(crops)
+                    return location_crop(vols, loc_break, self.cube, self.rng)
+                if self.rng.random() < 0.5 and (p := loc_small()) is not None:
+                    return point_crop(vols, p, self.cube, self.rng)
+                if len(loc_skeleton[0]) != 0:
+                    return location_crop(vols, loc_skeleton, self.cube, self.rng)
+            return random_crop(vols, self.cube, self.rng)
+
+        batch = _crop_batch(pick, self.batch_size, self.aug, self.rng, expo)
         batch["name"] = name
         return batch
 
@@ -308,7 +313,7 @@ class Prefetcher:
         self.it = iter(iterable)
         self.q: queue.Queue = queue.Queue(maxsize=depth)
         self.error: Exception | None = None
-        self.thread = threading.Thread(target=self._fill, daemon=True)
+        self.thread = threading.Thread(target=self._fill, daemon=True, name="Prefetcher")
         self.thread.start()
 
     def _fill(self):
@@ -322,7 +327,8 @@ class Prefetcher:
 
     def __iter__(self):
         while True:
-            item = self.q.get()
+            with span("data.wait"):
+                item = self.q.get()
             if item is self._END:
                 if self.error is not None:
                     raise self.error

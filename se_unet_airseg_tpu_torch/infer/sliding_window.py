@@ -30,6 +30,14 @@ gathered over space, then the tiles' scores over data in tile order, and
 every rank accumulates all of them in the same order: the volume is
 returned on every rank. In train mode each rank draws the batch's global
 uniforms and uses its rows of them.
+
+Under a profiler session (`utils.profiling`) a volume's host work is the
+span `runner.volume` with `runner.prep` (pad, cast and upload of the
+volume), one `runner.tile_batch` per tile batch and, when the overlap
+count of the volume's shape is not cached, `runner.inv_count` under it;
+`fetch_trits` is `runner.fetch` (the summary's copy waits for the
+device) with `runner.decode` (the mixed chunks' copies and the base-3
+unpack) under it.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ from ..models.se_unet import (
 from ..ops import hu_dual_window
 from ..parallel.mesh import all_gather_rows, all_gather_slabs, check_mesh
 from ..utils.devices import resolve_device
+from ..utils.profiling import span
 
 
 def _pad_to_cube(vol: np.ndarray, cube: int, fill: float):
@@ -256,14 +265,16 @@ class SlidingWindowRunner:
         if not s2d_io:
             pred = torch.zeros((d, h, w), dtype=torch.float32, device=self.device)
             for pb, dr in zip(batches, draws):
-                self._step(vol, pred, pb, shift, dr)
+                with span("runner.tile_batch"):
+                    self._step(vol, pred, pb, shift, dr)
             return pred
         d2, h2, w2 = d // 2, h // 2, w // 2
         v = vol.reshape(d2, 2, h2, 2, w2, 2).permute(0, 2, 4, 1, 3, 5)
         v = v.reshape(d2, h2, w2 * 8)
         pred = torch.zeros((d2, h2, w2 * 8), dtype=torch.float32, device=self.device)
         for pb, dr in zip(batches, draws):
-            self._step_s2d(v, pred, pb, shift, dr)
+            with span("runner.tile_batch"):
+                self._step_s2d(v, pred, pb, shift, dr)
         # one per-volume unfold back to voxel order
         pred = pred.reshape(d2, h2, w2, 2, 2, 2).permute(0, 3, 1, 4, 2, 5)
         return pred.reshape(d, h, w)
@@ -293,11 +304,12 @@ class SlidingWindowRunner:
         key = (padded_shape, len(pos))
         inv = self._inv_cnt_cache.get(key)
         if inv is None:
-            cnt = np.zeros(padded_shape, np.float32)
-            c = self.cube
-            for x, y, z in np.asarray(pos):
-                cnt[x : x + c, y : y + c, z : z + c] += 1.0
-            inv = torch.from_numpy(1.0 / np.maximum(cnt, 1.0)).to(self.device)
+            with span("runner.inv_count"):
+                cnt = np.zeros(padded_shape, np.float32)
+                c = self.cube
+                for x, y, z in np.asarray(pos):
+                    cnt[x : x + c, y : y + c, z : z + c] += 1.0
+                inv = torch.from_numpy(1.0 / np.maximum(cnt, 1.0)).to(self.device)
             self._inv_cnt_cache[key] = inv
             while len(self._inv_cnt_cache) > self._inv_cnt_cap:
                 self._inv_cnt_cache.popitem(last=False)
@@ -325,13 +337,14 @@ class SlidingWindowRunner:
              drop_draws=None):
         # int16 volumes (the stored HU+1024 contract) upload at half the
         # bytes; the shift and the f32 conversion happen on device
-        keep = np.int16 if hu_volume.dtype == np.int16 else np.float32
-        vol_np, orig_shape = _pad_to_cube(hu_volume.astype(keep), self.cube,
-                                          fill=-1024.0 - hu_shift)
-        pos = tile_positions(vol_np.shape, self.cube, self.step)
-        pos = pad_positions_to_batch(pos, self.batch)
-        draws = self._draws(len(pos) // self.batch, generator, drop_draws)
-        vol = torch.from_numpy(np.ascontiguousarray(vol_np)).to(self.device)
+        with span("runner.prep"):
+            keep = np.int16 if hu_volume.dtype == np.int16 else np.float32
+            vol_np, orig_shape = _pad_to_cube(hu_volume.astype(keep), self.cube,
+                                              fill=-1024.0 - hu_shift)
+            pos = tile_positions(vol_np.shape, self.cube, self.step)
+            pos = pad_positions_to_batch(pos, self.batch)
+            draws = self._draws(len(pos) // self.batch, generator, drop_draws)
+            vol = torch.from_numpy(np.ascontiguousarray(vol_np)).to(self.device)
         pred = self._run_volume(vol, pos, self._s2d_io_ok(vol_np.shape, pos),
                                 float(hu_shift), draws)
         inv_cnt = self._inv_count(tuple(vol_np.shape), pos)
@@ -384,7 +397,8 @@ class SlidingWindowRunner:
         """HU volume (D, H, W) -> float32 averaged score volume. `hu_shift`
         is added on device (-1024 for stored int16 HU+1024 volumes).
         `generator` / `drop_draws`: the DropLayer draws in train mode."""
-        pred, inv_cnt, _, orig = self._run(hu_volume, hu_shift, generator, drop_draws)
+        with span("runner.volume"):
+            pred, inv_cnt, _, orig = self._run(hu_volume, hu_shift, generator, drop_draws)
         out = (pred * inv_cnt).cpu().numpy()
         d, h, w = orig
         return out[:d, :h, :w]
@@ -394,10 +408,11 @@ class SlidingWindowRunner:
                              l_thresh: float = 0.4, hu_shift: float = 0.0,
                              generator: torch.Generator | None = None, drop_draws=None):
         """(packed device tensor, padded_shape, orig_shape), not fetched."""
-        pred, inv_cnt, padded_shape, orig = self._run(hu_volume, hu_shift, generator,
-                                                      drop_draws)
-        return (self._trit_pack(pred, inv_cnt, float(h_thresh), float(l_thresh)),
-                padded_shape, orig)
+        with span("runner.volume"):
+            pred, inv_cnt, padded_shape, orig = self._run(hu_volume, hu_shift, generator,
+                                                          drop_draws)
+            packed = self._trit_pack(pred, inv_cnt, float(h_thresh), float(l_thresh))
+        return packed, padded_shape, orig
 
     @torch.inference_mode()
     def predict_trits_summary_device(self, hu_volume: np.ndarray, *,
@@ -407,10 +422,11 @@ class SlidingWindowRunner:
                                      drop_draws=None):
         """(summary, payload_chunks, payload, padded_shape, orig_shape),
         all on the device, queued and not waited for."""
-        pred, inv_cnt, padded_shape, orig = self._run(hu_volume, hu_shift, generator,
-                                                      drop_draws)
-        summary, chunks, payload = self._trit_summary(pred, inv_cnt, float(h_thresh),
-                                                      float(l_thresh))
+        with span("runner.volume"):
+            pred, inv_cnt, padded_shape, orig = self._run(hu_volume, hu_shift, generator,
+                                                          drop_draws)
+            summary, chunks, payload = self._trit_summary(pred, inv_cnt, float(h_thresh),
+                                                          float(l_thresh))
         return summary, chunks, payload, padded_shape, orig
 
     def predict_trits(self, hu_volume: np.ndarray, *, h_thresh: float = 0.5,
@@ -430,8 +446,10 @@ def fetch_trits(out) -> np.ndarray:
     """Copy and decode the output of `predict_trits_summary_device` to
     the uint8 trit volume of the original extent."""
     summary, chunks, payload, padded_shape, orig = out
-    s = _host(summary)
-    trits = decode_trit_summary(s, make_chunk_fetcher(s, chunks, payload),
-                                int(np.prod(padded_shape)), padded_shape)
+    with span("runner.fetch"):
+        s = _host(summary)
+        with span("runner.decode"):
+            trits = decode_trit_summary(s, make_chunk_fetcher(s, chunks, payload),
+                                        int(np.prod(padded_shape)), padded_shape)
     d, h, w = orig
     return trits[:d, :h, :w]

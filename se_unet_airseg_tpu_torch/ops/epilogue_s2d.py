@@ -30,7 +30,9 @@ kernel or raises. Each counts its launches in `cuda_lib.launch_counts`.
 The block functions compute the InstanceNorm statistics in plain torch
 (f32 sums, f64 for f64 inputs; var = E[y^2] - mean^2 clamped at 0,
 scale = rsqrt(var+eps), shift = mean*scale, e = y*scale - shift) and
-hand the affine to the kernels:
+hand the affine to the kernels (under a profiler session the span
+`norm.stats`, and `norm.bwd_stats` for the backward's sums Q and R; see
+`utils.profiling`):
 
   * `gated_norm_block(y, wse)`: gathered form (dense-lift, grouped
     dil-2 and CATConv blocks);
@@ -68,6 +70,7 @@ from itertools import product
 import torch
 
 from ..parallel.mesh import space_sum
+from ..utils.profiling import span
 from .conv import conv3d
 from .conv_stats import dil2_dense_conv_stats, phased_conv_ungathered
 from .cuda_lib import _DTYPE_CODE, F32, _acc, _on_card, _stream, launch
@@ -352,27 +355,29 @@ def _whole_affine(s1, s2, nvox: int, eps: float, space):
 def _gathered_affine(y, eps: float, space=None):
     """InstanceNorm affine of a gathered s2d tensor (per original channel,
     over space x 8 sub-positions)."""
-    b, c8 = y.shape[0], y.shape[-1]
-    c = c8 // 8
-    yf = y.to(_acc(y.dtype))
-    s1 = yf.sum(dim=(1, 2, 3)).reshape(b, 8, c).sum(1)
-    s2 = torch.square(yf).sum(dim=(1, 2, 3)).reshape(b, 8, c).sum(1)
-    del yf
-    return _whole_affine(s1, s2, y.shape[1] * y.shape[2] * y.shape[3] * 8, eps, space)
+    with span("norm.stats"):
+        b, c8 = y.shape[0], y.shape[-1]
+        c = c8 // 8
+        yf = y.to(_acc(y.dtype))
+        s1 = yf.sum(dim=(1, 2, 3)).reshape(b, 8, c).sum(1)
+        s2 = torch.square(yf).sum(dim=(1, 2, 3)).reshape(b, 8, c).sum(1)
+        del yf
+        return _whole_affine(s1, s2, y.shape[1] * y.shape[2] * y.shape[3] * 8, eps, space)
 
 
 def _phased_affine(y_ext, eps: float, space=None):
     """InstanceNorm affine over the 8 phase windows of a phased conv's
     ungathered output (B, nz+1, n+1, n+1, 8C)."""
-    acc = _acc(y_ext.dtype)
-    nz, n = y_ext.shape[1] - 1, y_ext.shape[2] - 1
-    s1 = s2 = 0.0
-    for sl in phase_windows(y_ext):
-        slf = sl.to(acc)
-        s1 = s1 + slf.sum(dim=(1, 2, 3))
-        s2 = s2 + torch.square(slf).sum(dim=(1, 2, 3))
-    del slf
-    return _whole_affine(s1, s2, 8 * nz * n * n, eps, space)
+    with span("norm.stats"):
+        acc = _acc(y_ext.dtype)
+        nz, n = y_ext.shape[1] - 1, y_ext.shape[2] - 1
+        s1 = s2 = 0.0
+        for sl in phase_windows(y_ext):
+            slf = sl.to(acc)
+            s1 = s1 + slf.sum(dim=(1, 2, 3))
+            s2 = s2 + torch.square(slf).sum(dim=(1, 2, 3))
+        del slf
+        return _whole_affine(s1, s2, 8 * nz * n * n, eps, space)
 
 
 # ---------------------------------------------------------- backwards
@@ -425,11 +430,12 @@ def _core_bwd_from_a(a, scale8, wse, ct, nvox: int, space=None):
     d = d_e0.to(acc)
     daf = torch.where(a >= 0, d, d * 0.01)
     del d, d_e0
-    qr = torch.stack([daf.sum(dim=(1, 2, 3)), (daf * af).sum(dim=(1, 2, 3))])
-    if space is not None:
-        qr = space_sum(qr, space)
-    q = qr[0].reshape(b, 8, c).sum(1).repeat(1, 8)
-    r = qr[1].reshape(b, 8, c).sum(1).repeat(1, 8)
+    with span("norm.bwd_stats"):
+        qr = torch.stack([daf.sum(dim=(1, 2, 3)), (daf * af).sum(dim=(1, 2, 3))])
+        if space is not None:
+            qr = space_sum(qr, space)
+        q = qr[0].reshape(b, 8, c).sum(1).repeat(1, 8)
+        r = qr[1].reshape(b, 8, c).sum(1).repeat(1, 8)
     bshape = (b, 1, 1, 1, c8)
     dy = scale8.reshape(bshape) * (daf - (q.reshape(bshape) + af * r.reshape(bshape)) / nvox)
     return dy.to(a.dtype), d_wse
@@ -511,9 +517,11 @@ def _phased_forward(xs, w_all, b_all, wse, eps, ext_kernel=False, space=None):
 
 def _dil2_forward(x, wd, bg, wse, eps):
     y, s1, s2 = dil2_dense_conv_stats(x, wd, bg)
-    b, c = y.shape[0], y.shape[-1] // 8
-    nvox = 8 * y.shape[1] * y.shape[2] * y.shape[3]
-    scale8, shift8 = _affine8(s1.reshape(b, 8, c).sum(1), s2.reshape(b, 8, c).sum(1), nvox, eps)
+    with span("norm.stats"):
+        b, c = y.shape[0], y.shape[-1] // 8
+        nvox = 8 * y.shape[1] * y.shape[2] * y.shape[3]
+        scale8, shift8 = _affine8(s1.reshape(b, 8, c).sum(1), s2.reshape(b, 8, c).sum(1),
+                                  nvox, eps)
     return gathered_epilogue(y, scale8, shift8, wse)
 
 

@@ -83,6 +83,7 @@ from ..data.splits import load_json_file
 from ..models.se_unet import SEUNet, SEUNetConfig, _tree_map
 from ..parallel.mesh import broadcast_tree, check_mesh
 from ..utils.devices import resolve_device
+from ..utils.profiling import count, span
 from .checkpoint import load_params, load_state, save_params, save_state
 from .online_cache import OnlineCache
 from .schedule import CurriculumScheduler, Stage3Scheduler
@@ -211,11 +212,15 @@ def _init_state(cfg: StageConfig, stage: int, device: torch.device):
 
 
 def _feed(batch: dict, device: torch.device, mesh) -> dict:
-    """The step's batch: uploaded to `device`, or on a mesh the host
-    arrays, of which the sharded step uploads this rank's rows."""
+    """The step's batch: uploaded to `device` (the span `train.upload`, its
+    bytes counted in `train.h2d_bytes`), or on a mesh the host arrays, of
+    which the sharded step uploads this rank's rows."""
     if mesh is not None:
         return batch
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+    with span("train.upload"):
+        out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+    count("train.h2d_bytes", sum(t.nbytes for t in out.values()))
+    return out
 
 
 def _epoch_pass(state, step_fn, batches, draws: Draws, device, log_every=10, cache=None,
