@@ -8,7 +8,7 @@ Needs one CUDA card and nvcc; exits non-zero without them. Phases:
 1. device: the card's name and power limit (nvidia-smi); TF32 off for
    the float32 phases; `utils.device_summary()` and
    `utils.pick_devices(1, 40.0)` (`devices`);
-2. build: nvcc builds the kernels from the six sources under csrc/,
+2. build: nvcc builds the kernels from the seven sources under csrc/,
    one nvcc per source, started together, into one library; the line
    reports ptxas's registers and spills of every kernel; for the
    epilogue kernels of csrc/epilogue.cu and the instance_norm_leaky
@@ -237,6 +237,15 @@ Needs one CUDA card and nvcc; exits non-zero without them. Phases:
    backward, autograd through them). It has no model path: its launches
    are read from one forward and backward of its s2d entry point under
    autograd;
+16a. norm_stats (K12): the statistics kernel in both forms at the 15
+   blocks' shapes of a tile batch (batch 8, bf16: the 10 gathered
+   outputs, the 5 phased conv outputs (B, n+1, n+1, n+1, 8C)), each
+   against its plain version and the float64 sums (NS_RTOL), twice
+   bitwise equal; with ms, the plain version's ms, the memory bound (the
+   windows read once) and `copy_ms` (no one PyTorch call computes both
+   sums). Every launch count above also holds K12's: 15 a tile batch, 30
+   a train step, 40 with remat (7 and 14 under conv_stats, 12 and 27
+   under conv_epi);
 17. a `kernels` JSON line (each kernel's summed ms, bound, plain and
    library ms, launches, and for K1/K2/K5 and K7 `design` and `copy_ms`),
    then the card line, then the last line `{"ok": true, "device": {...}}`.
@@ -358,6 +367,8 @@ KERNELS = {  # name: (the Pallas functions it replaces, source)
                                "se_unet_airseg_tpu/ops/pallas_s2d.py:2131", WGMMA_SRC),
     "instance_norm_leaky_fwd": ("se_unet_airseg_tpu/ops/pallas_norm.py:132", NL_SRC),
     "instance_norm_leaky_bwd": ("se_unet_airseg_tpu/ops/pallas_norm.py:168", NL_SRC),
+    "norm_stats": ("none (the JAX package's statistics are XLA reductions)",
+                   "se_unet_airseg_tpu_torch/csrc/norm_stats.cu"),
 }
 EPILOGUE_TABLES = {"gathered_epilogue": GATHERED, "phased_epilogue": PHASED}
 # engine path: the 160^3 test / validation cases cut from the phantom
@@ -416,6 +427,11 @@ CT_STEPS = 10
 # dry run's float32 inputs (tests/test_torch_cuda.py's float32 tolerance);
 # the pool backward exactly
 F32_EPI_ATOL, F32_EPI_RTOL = 1e-6, 1e-5
+# norm_stats: f32 sums in another order than the plain version's; each
+# within NS_RTOL of the float64 sum, relative to the lane's sum of |y|
+# (s1) or to itself (s2): a thread adds up to ~500 rows in turn (worst
+# case 500 * 2^-24 = 3e-5, random rounding ~ sqrt(500) * 2^-24 = 1.3e-6)
+NS_RTOL = 1e-5
 
 
 def ptxas_report(log: str) -> dict:
@@ -454,22 +470,34 @@ def counts(**nonzero) -> dict:
     return {k: nonzero.get(k, 0) for k in launch_counts}
 
 
+def infer_counts(n: int) -> dict:
+    """The launches of n tile batches of the default forward: K1 and K2,
+    each after K12's statistics of its block."""
+    return counts(gathered_epilogue=10 * n, phased_epilogue=5 * n, norm_stats=15 * n)
+
+
+# K12 (norm_stats) runs once for each block's statistics: before each K1
+# and K2 of the forward (remat's replay too), and again in each gathered
+# and phased block's backward, which recomputes them
 STEP_LAUNCHES = counts(gathered_epilogue=10, phased_epilogue=5, phased_normalize=5,
-                       max_pool_s2d_bwd=2)
-CS_LAUNCHES = counts(gathered_epilogue=7, phased_conv_stats=5, dil2_conv_stats=3)
+                       max_pool_s2d_bwd=2, norm_stats=30)
+CS_LAUNCHES = counts(gathered_epilogue=7, phased_conv_stats=5, dil2_conv_stats=3, norm_stats=7)
 REMAT_LAUNCHES = counts(gathered_epilogue=20, phased_epilogue=5, phased_normalize=5,
-                        max_pool_s2d_bwd=2)
+                        max_pool_s2d_bwd=2, norm_stats=40)
 # a train step under conv_stats: the forward's K8, K9 and K1 and the pool
 # backward (the K8/K9 backward is autograd of their plain versions, the
 # phased blocks take no K2/K5); under conv_epi: the forward's K10, K11, K1
 # and K2, the phased backward's K5 (its replay runs cuDNN's conv, the
-# dil-2 backward's too) and the pool backward
+# dil-2 backward's too) and the pool backward. K12: the K1 blocks, whose
+# sums K8/K9 do not make, forward and backward; under conv_epi the dil-2
+# blocks' sums come from K10 in the forward and from K12 in the backward
 CS_STEP_LAUNCHES = counts(gathered_epilogue=7, phased_conv_stats=5, dil2_conv_stats=3,
-                          max_pool_s2d_bwd=2)
+                          max_pool_s2d_bwd=2, norm_stats=14)
 CE_STEP_LAUNCHES = counts(gathered_epilogue=10, phased_epilogue=5, phased_normalize=5,
-                          dil2_dense_conv_stats=3, phased_conv_ungathered=5, max_pool_s2d_bwd=2)
+                          dil2_dense_conv_stats=3, phased_conv_ungathered=5, max_pool_s2d_bwd=2,
+                          norm_stats=27)
 CE_LAUNCHES = counts(gathered_epilogue=10, phased_epilogue=5, dil2_dense_conv_stats=3,
-                     phased_conv_ungathered=5)
+                     phased_conv_ungathered=5, norm_stats=12)
 
 
 def emit(obj) -> None:
@@ -622,6 +650,54 @@ def kernel_phase():
     return summary
 
 
+def norm_stats_close(got: torch.Tensor, y: torch.Tensor, phased: bool) -> float:
+    """The largest error of (2, B, 8C) sums against the float64 sums of y,
+    over NS_RTOL times the lane's sum of |y| (s1) or its float64 sum of
+    squares (s2): at most 1 where the sums hold."""
+    exact = eps.norm_stats_plain(y.double(), phased)
+    mag = torch.stack([eps.norm_stats_plain(y.double().abs(), phased)[0], exact[1]])
+    return float(((got.double() - exact).abs() / (NS_RTOL * mag + 1e-30)).max())
+
+
+def norm_stats_phase(batch: int = BATCH):
+    """K12 at the 15 blocks' statistics shapes of a tile batch: the
+    gathered outputs and the phased conv outputs, against the plain
+    version and the float64 sums, twice bitwise equal."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    agg = new_summary()
+    for phased, table in ((False, GATHERED), (True, PHASED)):
+        for block, n, c8, _ in table:
+            m = n + 1 if phased else n
+            y = torch.randn((batch, m, m, m, c8), generator=gen, device="cuda")
+            y = y.to(torch.bfloat16)
+            got = eps.norm_stats(y, phased)
+            again = eps.norm_stats(y, phased)
+            ref = eps.norm_stats_plain(y, phased)
+            err, plain_err = norm_stats_close(got, y, phased), norm_stats_close(ref, y, phased)
+            if not torch.equal(got, again) or not err <= 1.0:
+                raise AssertionError(f"norm_stats {block}: error {err} of NS_RTOL, or two "
+                                     f"launches differ")
+            nbytes = batch * n ** 3 * c8 * y.element_size()
+            b_ms, b_by = least_ms(nbytes + 2 * batch * c8 * 4, 2 * batch * n ** 3 * c8)
+            line = {"kernel": "norm_stats", "block": block, "shape": list(y.shape),
+                    "form": "phased" if phased else "gathered",
+                    "chunk_rows": eps.norm_stats_chunk(batch, eps.norm_stats_rows(y.shape, phased),
+                                                       c8, y.element_size(),
+                                                       eps._sm_count(y.device.index)),
+                    "ms": cuda_ms(lambda: eps.norm_stats(y, phased)),
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "plain_ms": cuda_ms(lambda: eps.norm_stats_plain(y, phased)),
+                    "copy_ms": copy_ms(nbytes),
+                    "max_abs_diff": float((got - ref).abs().max()),
+                    "err_of_rtol": err, "plain_err_of_rtol": plain_err}
+            line["x_bound"] = line["ms"] / b_ms
+            emit(line)
+            add_call(agg, line)
+            del y, got, again, ref
+    torch.cuda.empty_cache()
+    return {"norm_stats": agg}
+
+
 def pool_input(n: int, c8: int, gen: torch.Generator, batch: int = BATCH) -> torch.Tensor:
     """bf16 (B, n, n, n, 8C) pool input with ties among the 8
     sub-positions: on every third channel sub-positions 3 and 6 copy 1,
@@ -718,7 +794,7 @@ def model_parity_phase():
         fast_cpu = se_unet_apply_fast(tree_cpu, x, cfg=cfg)
         bf16_cfg = SEUNetConfig(compute_dtype=torch.bfloat16)
         fast_bf16 = se_unet_apply_fast(tree_gpu, x.cuda(), cfg=bf16_cfg)
-    if launched != counts(gathered_epilogue=10, phased_epilogue=5):
+    if launched != infer_counts(1):
         raise AssertionError(f"f32 apply_fast launched {launched}")
     res = {"launches_f32": launched}
     for name, a, b in (("gpu_vs_cpu", fast_gpu, fast_cpu), ("fast_vs_apply", fast_gpu, ref_gpu)):
@@ -819,7 +895,7 @@ def main_path_phase(vol: np.ndarray):
         vol_s.append(time.perf_counter() - t0)
     launches = dict(launch_counts)
     n_batches *= TIMED_VOLUMES
-    if launches != counts(gathered_epilogue=10 * n_batches, phased_epilogue=5 * n_batches):
+    if launches != infer_counts(n_batches):
         raise AssertionError(f"main path launches {launches}, want 10 and 5 per batch")
     if trits.shape != SHAPE or trits.dtype != np.uint8 or trits.max() > 2:
         raise AssertionError(f"bad trit field {trits.shape} {trits.dtype}")
@@ -1545,7 +1621,7 @@ def deployment_phase(vol: np.ndarray, lumen: torch.Tensor, params, cfg, tmp: str
     launches = dict(launch_counts)
     img = read_nifti(os.path.join(tmp, "pred", "CASE_phantomdata_cut.nii.gz"))
     n = tile_batches(img.array.shape, 128, 64)
-    if launches != counts(gathered_epilogue=10 * n, phased_epilogue=5 * n):
+    if launches != infer_counts(n):
         raise AssertionError(f"deployment launches {launches}, want 10 and 5 per tile batch "
                              f"over {n}")
     mask = read_nifti(out).array
@@ -1780,7 +1856,7 @@ def entry_points_phase(vol, lumen, branch, params, cfg, tmp: str) -> None:
             raise AssertionError(f"{entry}: non-finite metric {out}")
     launches = dict(launch_counts)
     n = 2 * len(names) * tile_batches((ENGINE_CUT,) * 3, 128, 64)
-    if launches != counts(gathered_epilogue=10 * n, phased_epilogue=5 * n):
+    if launches != infer_counts(n):
         raise AssertionError(f"run_test + validate launches {launches}, want 10 and 5 per "
                              f"tile batch over {n}")
     line["launches"] = launches
@@ -1964,7 +2040,7 @@ def drivers_path_phase(vol: np.ndarray, lumen: torch.Tensor, branch: np.ndarray,
             losses = [float(v) for v in probe.losses]
             if not losses or not all(math.isfinite(v) for v in losses):
                 raise AssertionError(f"{name}: losses {losses}")
-            want_val = counts(gathered_epilogue=10 * n_val, phased_epilogue=5 * n_val)
+            want_val = infer_counts(n_val)
             if len(probe.val_launches) != (1 if stage == 1 else len(epochs)) or any(
                     v != want_val for v in probe.val_launches):
                 raise AssertionError(f"{name}: validation launches {probe.val_launches}")
@@ -2072,8 +2148,7 @@ def curriculum_path_phase(vol: np.ndarray, lumen: torch.Tensor, branch: np.ndarr
                 losses = [float(v) for v in probe.losses]
                 if not losses or not all(math.isfinite(v) for v in losses):
                     raise AssertionError(f"curriculum stage {n}: losses {losses}")
-                want_val = counts(gathered_epilogue=10 * n_tiles * len(val_names),
-                                  phased_epilogue=5 * n_tiles * len(val_names))
+                want_val = infer_counts(n_tiles * len(val_names))
                 if len(probe.val_launches) != 1:
                     raise AssertionError(f"curriculum stage {n}: {len(probe.val_launches)} "
                                          "validations, want 1")
@@ -2108,7 +2183,7 @@ def curriculum_path_phase(vol: np.ndarray, lumen: torch.Tensor, branch: np.ndarr
             n = n_tiles * len(pred_names)
             preds[which] = {k: launch_counts[k] - before[k] for k in launch_counts}
             expect_launches(which, preds[which],
-                            counts(gathered_epilogue=10 * n, phased_epilogue=5 * n))
+                            infer_counts(n))
             return out
 
         def timed_break(*args, **kw):
@@ -2129,7 +2204,7 @@ def curriculum_path_phase(vol: np.ndarray, lumen: torch.Tensor, branch: np.ndarr
             got = {k: launch_counts[k] - before[k] for k in launch_counts}
             n = n_tiles * len(val_names)
             expect_launches("a DTI re-validation", got,
-                            counts(gathered_epilogue=10 * n, phased_epilogue=5 * n))
+                            infer_counts(n))
             dti.append({"stage": kw["stage"], "epoch": args[5], "result": list(out)})
             if not all(math.isfinite(v) for v in out):
                 raise AssertionError(f"DTI re-validation: non-finite metric {out}")
@@ -2394,7 +2469,7 @@ def nccl_one_rank(vol: np.ndarray, lumen: torch.Tensor, bare_step_s: float,
     for k, v in out.items():
         expect_launches(f"the one-rank NCCL check's {k} step", v["launches"], STEP_LAUNCHES)
     expect_launches("the one-rank NCCL runner", runner["launches"],
-                    counts(gathered_epilogue=10 * n_batches, phased_epilogue=5 * n_batches))
+                    infer_counts(n_batches))
     if runner["all_gather_into_tensor_calls"] != n_batches:
         raise AssertionError(f"the one-rank NCCL runner gathered "
                              f"{runner['all_gather_into_tensor_calls']} times, want {n_batches}")
@@ -2671,8 +2746,7 @@ def data_parallel_path_phase(vol: np.ndarray, lumen: torch.Tensor, branch: np.nd
         expect_launches(f"rank {i}'s train steps", r["full"]["launches"],
                         {k: v * DP_STEPS for k, v in STEP_LAUNCHES.items()})
         expect_launches(f"rank {i}'s runner", r["runner"]["launches"],
-                        counts(gathered_epilogue=10 * n_batches * DP_VOLUMES,
-                               phased_epilogue=5 * n_batches * DP_VOLUMES))
+                        infer_counts(n_batches * DP_VOLUMES))
         if not all(math.isfinite(v) for v in r["full"]["losses"] + r["drivers"]["losses"]):
             raise AssertionError(f"rank {i}: non-finite losses")
         want_steps = {"main": len(ENGINE_CASES), "replay": int(len(ENGINE_CASES) * BATCH * 0.3)}
@@ -2689,10 +2763,7 @@ def data_parallel_path_phase(vol: np.ndarray, lumen: torch.Tensor, branch: np.nd
             torch.equal(a, b_) for a, b_ in zip(r0["drivers"]["params"],
                                                  ranks[1]["drivers"]["params"])):
         raise AssertionError("the ranks' driver losses or parameters differ")
-    want_val = counts(gathered_epilogue=10 * tile_batches((ENGINE_CUT,) * 3, DRIVER_CUBE,
-                                                          DRIVER_CUBE // 2),
-                      phased_epilogue=5 * tile_batches((ENGINE_CUT,) * 3, DRIVER_CUBE,
-                                                       DRIVER_CUBE // 2))
+    want_val = infer_counts(tile_batches((ENGINE_CUT,) * 3, DRIVER_CUBE, DRIVER_CUBE // 2))
     if r0["drivers"]["val_launches"] != [want_val]:
         raise AssertionError(f"rank 0's validation launched {r0['drivers']['val_launches']}")
     if r0["drivers"]["writes"] != {"params": 1, "resume_point": 1,
@@ -2949,7 +3020,7 @@ def space_path_phase(vol: np.ndarray, lumen: torch.Tensor, trits: np.ndarray,
         expect_launches(f"rank {i}'s depth-split train steps", r["full"]["launches"],
                         {k: v * SP_STEPS for k, v in STEP_LAUNCHES.items()})
         expect_launches(f"rank {i}'s depth-split runner", r["runner"]["launches"],
-                        counts(gathered_epilogue=10 * n_batches, phased_epilogue=5 * n_batches))
+                        infer_counts(n_batches))
         if not all(math.isfinite(v) for v in r["full"]["losses"]):
             raise AssertionError(f"rank {i}: non-finite losses {r['full']['losses']}")
     if not np.array_equal(r0["runner"]["trits"], ranks[1]["runner"]["trits"]):
@@ -3111,7 +3182,8 @@ def main() -> int:
             "ring_dynamic_smem_bytes": {d: lib.lib.airseg_norm_leaky_ring_smem()
                                         for d in ("fwd", "bwd")},
             "ring_stages": {d: norm_leaky.ring_stages(d == "bwd") for d in ("fwd", "bwd")},
-            "ptxas": named_report(ptxas, ("ring_kernel", "reg_kernel"))}}})
+            "ptxas": named_report(ptxas, ("ring_kernel", "reg_kernel"))},
+        "norm_stats": {"ptxas": named_report(ptxas, ("norm_stats_",))}}})
 
     summary = kernel_phase()
     summary.update(train_kernel_phase())
@@ -3119,6 +3191,7 @@ def main() -> int:
     summary.update(conv_epi_kernel_phase())
     nl_summary, nl_launches = norm_leaky_phase()
     summary.update(nl_summary)
+    summary.update(norm_stats_phase())
     model_parity_phase()
     config_parity_phase("conv_stats", SEUNetConfig(conv_stats=True), CS_LAUNCHES)
     config_parity_phase("conv_epi", SEUNetConfig(conv_epi=True), CE_LAUNCHES)
@@ -3143,7 +3216,7 @@ def main() -> int:
     space_path_phase(vol, lumen, trits, bare_step_s, train_peak_gb)
     dryrun_path_phase()
     # each kernel's launches from the path that runs it
-    launches = {**{k: main_launches[k] for k in EPILOGUE_TABLES},
+    launches = {**{k: main_launches[k] for k in (*EPILOGUE_TABLES, "norm_stats")},
                 **{k: train_launches[k] for k in ("phased_normalize", "max_pool_s2d_bwd")},
                 **{k: cs_launches[k] for k in ("phased_conv_stats", "dil2_conv_stats")},
                 **{k: ce_launches[k] for k in ("dil2_dense_conv_stats", "phased_conv_ungathered")},

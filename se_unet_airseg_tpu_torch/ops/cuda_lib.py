@@ -27,13 +27,14 @@ import torch
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = _CSRC / "build"
 _SOURCES = ("epilogue.cu", "pool_s2d.cu", "conv_stats.cu", "norm_leaky.cu", "conv_wgmma.cu",
-            "dil2_wgmma.cu")
+            "dil2_wgmma.cu", "norm_stats.cu")
 
 launch_counts = {"gathered_epilogue": 0, "phased_epilogue": 0,
                  "phased_normalize": 0, "max_pool_s2d_bwd": 0,
                  "phased_conv_stats": 0, "dil2_conv_stats": 0,
                  "dil2_dense_conv_stats": 0, "phased_conv_ungathered": 0,
-                 "instance_norm_leaky_fwd": 0, "instance_norm_leaky_bwd": 0}
+                 "instance_norm_leaky_fwd": 0, "instance_norm_leaky_bwd": 0,
+                 "norm_stats": 0}
 
 
 def reset_launch_counts() -> None:
@@ -86,6 +87,8 @@ _SIGNATURES = {
     "airseg_norm_leaky_fwd": [_I, _P, _P, _P, _P, _LL, _LL, _I, _P],
     "airseg_norm_leaky_ring_smem": [],
     "airseg_norm_leaky_bwd": [_I, _P, _P, _P, _P, _P, _LL, _LL, _I, _P],
+    "airseg_norm_stats_gathered": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "airseg_norm_stats_phased": [_I, _P, _LL, _LL, _LL, _LL, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -27,12 +27,19 @@ for the CPU tests. Each wrapper takes its plain PyTorch version
 (`*_plain`) for a CPU tensor only; on a CUDA tensor it launches the
 kernel or raises. Each counts its launches in `cuda_lib.launch_counts`.
 
-The block functions compute the InstanceNorm statistics in plain torch
-(f32 sums, f64 for f64 inputs; var = E[y^2] - mean^2 clamped at 0,
-scale = rsqrt(var+eps), shift = mean*scale, e = y*scale - shift) and
-hand the affine to the kernels (under a profiler session the span
-`norm.stats`, and `norm.bwd_stats` for the backward's sums Q and R; see
-`utils.profiling`):
+The block functions take the InstanceNorm statistics from a fourth
+kernel, K12 (`norm_stats`, csrc/norm_stats.cu): per (sample, lane) the
+f32 sum and sum of squares of the conv output, one read in its own dtype,
+over a gathered tensor or, in place, over the 8 phase windows of the
+phased conv's ungathered output. The 8 sub-positions then fold per
+original channel and the affine follows in torch (var = E[y^2] - mean^2
+clamped at 0, scale = rsqrt(var+eps), shift = mean*scale, e = y*scale -
+shift), handed to the epilogue kernels. Its row partition and window
+walk are stated in plain Python beside it (`norm_stats_reads_plain`,
+`norm_stats_chunk`); on a CPU tensor it takes `norm_stats_plain` (f32
+sums, f64 for f64 inputs). The backward's sums Q and R stay in plain
+torch. Under a profiler session the statistics run in the span
+`norm.stats`, Q and R in `norm.bwd_stats` (see `utils.profiling`):
 
   * `gated_norm_block(y, wse)`: gathered form (dense-lift, grouped
     dil-2 and CATConv blocks);
@@ -65,8 +72,10 @@ forward alone.
 
 from __future__ import annotations
 
+import functools
 from itertools import product
 
+import numpy as np
 import torch
 
 from ..parallel.mesh import space_sum
@@ -341,43 +350,176 @@ def phased_normalize(y_ext, scale8, shift8, *, design=None):
 
 # --------------------------------------------------------- statistics
 
+NS_THREADS = 256        # threads of a K12 block (csrc/norm_stats.cu kThreads)
+NS_BLOCKS_PER_SM = 4    # K12 blocks an SM holds (kBlocksPerSm)
 
-def _whole_affine(s1, s2, nvox: int, eps: float, space):
-    """`_affine8` of the (B, C) sums s1, s2 over `nvox` values; with
-    `space`, of this rank's depth slab: the sums add over the space ranks
-    (one collective) and the count is the whole crop's."""
+
+def norm_stats_plain(y, phased: bool = False):
+    """Plain PyTorch version of `norm_stats`: the per-(sample, lane) sum
+    and sum of squares, (2, B, 8C) in f32 (f64 for f64 inputs), of a
+    gathered y (B, nz, n, n, 8C) or, `phased`, over the 8 phase windows of
+    y_ext (B, nz+1, n+1, xw, 8C), lane block q from window q."""
+    acc = _acc(y.dtype)
+    if not phased:
+        yf = y.to(acc)
+        return torch.stack([yf.sum(dim=(1, 2, 3)), torch.square(yf).sum(dim=(1, 2, 3))])
+    s1, s2 = [], []
+    for sl in phase_windows(y):
+        slf = sl.to(acc)
+        s1.append(slf.sum(dim=(1, 2, 3)))
+        s2.append(torch.square(slf).sum(dim=(1, 2, 3)))
+    return torch.stack([torch.cat(s1, dim=-1), torch.cat(s2, dim=-1)])
+
+
+def norm_stats_chunk(b: int, rows: int, c8: int, elt: int, sms: int) -> int:
+    """Rows of one K12 block: a batch entry's `rows` voxel rows
+    (`norm_stats_rows`) are cut into chunks of whole passes (a pass:
+    256 / (8C / V) rows, V lanes a 16-byte vector), so that the b entries'
+    chunks make about NS_BLOCKS_PER_SM blocks on each of the card's `sms`
+    SMs, one wave."""
+    step = NS_THREADS // (c8 * elt // 16)
+    passes = -(-rows // step)
+    per_block = max(1, -(-b * passes // (NS_BLOCKS_PER_SM * sms)))
+    return min(per_block, passes) * step
+
+
+def norm_stats_rows(shape, phased: bool) -> int:
+    """The voxel rows K12 walks in a y of `shape`: a gathered y's nz*n*n,
+    a phased y_ext's (nz+1)(n+1)^2 grid (its x extent past n+1 is not
+    read)."""
+    return shape[1] * shape[2] * (shape[2] if phased else shape[3])
+
+
+def norm_stats_reads_plain(shape, phased: bool, elt: int, chunk: int):
+    """K12's reads of batch entry 0, as `block_sums` and `Walk` in
+    csrc/norm_stats.cu make them: the element offset of every 16-byte
+    vector loaded by every block (k, 0) and thread (s, j) over its passes,
+    for a contiguous y (B, nz, n, n, 8C) or `phased` y_ext (B, nz+1, n+1,
+    xw, 8C). Block (k, b) reads b's offsets (b * the batch stride more).
+    Rows are voxels in memory order (phased: of the (nz+1, n+1, n+1) grid,
+    a lane block loaded where the voxel lies in its window); the walk steps
+    (z, y, x) by adding, as the kernel does."""
+    if phased:
+        _, mz, m, xw, c8 = shape
+        nz, n, ny = mz - 1, m - 1, m
+    else:
+        _, nz, n, xw, c8 = shape
+        m = ny = n
+    sx, sy = c8, xw * c8
+    sz = ny * sy
+    vec = 16 // elt
+    per_row = c8 // vec
+    step = NS_THREADS // per_row
+    rows = norm_stats_rows(shape, phased)
+    chunks = -(-rows // chunk)
+    k = np.repeat(np.arange(chunks), step)
+    r = k * chunk + np.tile(np.arange(step), chunks)
+    end = np.minimum((k + 1) * chunk, rows)
+    z, rem = np.divmod(r, m * m)
+    yy, x = np.divmod(rem, m)
+    off = z * sz + yy * sy + x * sx
+    cols = np.arange(per_row) * vec
+    q = cols // (c8 // 8)
+    qa, qb, qc = q >> 2 & 1, q >> 1 & 1, q & 1
+    reads = []
+    while (r < end).any():
+        live = r < end
+        if phased:
+            inside = ((0 <= z[:, None] - qa) & (z[:, None] - qa < nz)
+                      & (0 <= yy[:, None] - qb) & (yy[:, None] - qb < n)
+                      & (0 <= x[:, None] - qc) & (x[:, None] - qc < n))
+        else:
+            inside = np.ones((len(r), per_row), dtype=bool)
+        at = off[:, None] + cols[None, :]
+        reads.append(at[live[:, None] & inside])
+        r, x, off = r + step, x + step, off + step * sx
+        wrap = x >= m
+        while wrap.any():
+            x, off = x - m * wrap, off + (sy - m * sx) * wrap
+            yy = yy + wrap
+            ywrap = yy == m
+            yy, z, off = yy - m * ywrap, z + ywrap, off + (sz - m * sy) * ywrap
+            wrap = x >= m
+    return np.concatenate(reads).astype(np.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def norm_stats(y, phased: bool = False):
+    """Per-(sample, lane) sum and sum of squares of a block's conv output,
+    (2, B, 8C) f32: K12 (csrc/norm_stats.cu), one read of y in its own
+    dtype. Gathered: y (B, nz, n, n, 8C); `phased`: the ungathered y_ext
+    (B, nz+1, n+1, xw >= n+1, 8C), lane block q over phase window q, read
+    in place. y contiguous, float32 or bfloat16, 8C / V a power of two up
+    to 256 (V = 16 bytes of lanes), and, phased, C a multiple of V. On a
+    CPU tensor: `norm_stats_plain`."""
+    if not _on_card(y):
+        return norm_stats_plain(y, phased)
+    if y.dtype not in _DTYPE_CODE:
+        raise TypeError(f"norm_stats takes float32 or bfloat16, got {y.dtype}")
+    if y.dim() != 5 or not y.is_contiguous() or y.data_ptr() % 16:
+        raise ValueError(f"y must be a contiguous, 16-byte aligned 5-D tensor, got "
+                         f"{tuple(y.shape)} with strides {y.stride()}")
+    b, c8 = y.shape[0], y.shape[-1]
+    if phased:
+        nz, n = y.shape[1] - 1, y.shape[2] - 1
+        ok = y.shape[3] >= n + 1
+    else:
+        nz, n = y.shape[1], y.shape[2]
+        ok = y.shape[3] == n
+    vec = 16 // y.element_size()
+    row = c8 // vec
+    if not ok or nz < 1 or n < 1:
+        raise ValueError(f"unsupported {'phased' if phased else 'gathered'} shape "
+                         f"{tuple(y.shape)}")
+    if c8 % vec or row & (row - 1) or row > NS_THREADS or (phased and (c8 // 8) % vec):
+        raise ValueError(f"unsupported channel width 8C={c8} for {y.dtype}")
+    rows = norm_stats_rows(y.shape, phased)
+    chunk = norm_stats_chunk(b, rows, c8, y.element_size(), _sm_count(y.device.index))
+    part = torch.empty((b, -(-rows // chunk), 2, c8), dtype=F32, device=y.device)
+    sums = torch.empty((2, b, c8), dtype=F32, device=y.device)
+    code = _DTYPE_CODE[y.dtype]
+    with torch.cuda.device(y.device):
+        if phased:
+            launch("airseg_norm_stats_phased", "norm_stats", code, y.data_ptr(),
+                   *(y.stride(i) for i in range(4)), part.data_ptr(), sums.data_ptr(),
+                   b, nz, n, c8, chunk, _stream(y))
+        else:
+            launch("airseg_norm_stats_gathered", "norm_stats", code, y.data_ptr(),
+                   part.data_ptr(), sums.data_ptr(), b, nz, n, c8, chunk, _stream(y))
+    return sums
+
+
+def _whole_affine(s12, nvox: int, eps: float, space):
+    """`_affine8` of the (2, B, 8C) per-lane sums s12 over `nvox` values:
+    the 8 sub-positions add per original channel; with `space`, of this
+    rank's depth slab: the sums add over the space ranks (one collective)
+    and the count is the whole crop's."""
+    b, c8 = s12.shape[1], s12.shape[2]
+    s12 = s12.reshape(2, b, 8, c8 // 8).sum(2)
     if space is not None:
-        s1, s2 = space_sum(torch.stack([s1, s2]), space).unbind(0)
+        s12 = space_sum(s12, space)
         nvox *= space.space_size
-    return _affine8(s1, s2, nvox, eps)
+    return _affine8(s12[0], s12[1], nvox, eps)
 
 
 def _gathered_affine(y, eps: float, space=None):
     """InstanceNorm affine of a gathered s2d tensor (per original channel,
     over space x 8 sub-positions)."""
     with span("norm.stats"):
-        b, c8 = y.shape[0], y.shape[-1]
-        c = c8 // 8
-        yf = y.to(_acc(y.dtype))
-        s1 = yf.sum(dim=(1, 2, 3)).reshape(b, 8, c).sum(1)
-        s2 = torch.square(yf).sum(dim=(1, 2, 3)).reshape(b, 8, c).sum(1)
-        del yf
-        return _whole_affine(s1, s2, y.shape[1] * y.shape[2] * y.shape[3] * 8, eps, space)
+        return _whole_affine(norm_stats(y.contiguous()),
+                             y.shape[1] * y.shape[2] * y.shape[3] * 8, eps, space)
 
 
 def _phased_affine(y_ext, eps: float, space=None):
     """InstanceNorm affine over the 8 phase windows of a phased conv's
     ungathered output (B, nz+1, n+1, n+1, 8C)."""
     with span("norm.stats"):
-        acc = _acc(y_ext.dtype)
         nz, n = y_ext.shape[1] - 1, y_ext.shape[2] - 1
-        s1 = s2 = 0.0
-        for sl in phase_windows(y_ext):
-            slf = sl.to(acc)
-            s1 = s1 + slf.sum(dim=(1, 2, 3))
-            s2 = s2 + torch.square(slf).sum(dim=(1, 2, 3))
-        del slf
-        return _whole_affine(s1, s2, 8 * nz * n * n, eps, space)
+        return _whole_affine(norm_stats(y_ext, phased=True), 8 * nz * n * n, eps, space)
 
 
 # ---------------------------------------------------------- backwards

@@ -109,7 +109,7 @@ def test_apply_fast_on_card_matches_cpu(dev):
         ref = se_unet_apply_fast(model.params_tree(), x, cfg=cfg)
         reset_launch_counts()
         got = se_unet_apply_fast(model.to(dev).params_tree(), x.to(dev), cfg=cfg)
-    assert launch_counts == _counts(gathered_epilogue=10, phased_epilogue=5)
+    assert launch_counts == _counts(gathered_epilogue=10, phased_epilogue=5, norm_stats=15)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g.cpu(), r, rtol=1e-3, atol=1e-4)
 
@@ -174,7 +174,7 @@ def test_train_grads_on_card_match_cpu(dev):
     (l_cpu, n_cpu, g_cpu), (l_gpu, n_gpu, g_gpu) = out["cpu"], out[str(dev)]
     assert not any(n_cpu.values())
     assert n_gpu == _counts(gathered_epilogue=10, phased_epilogue=5, phased_normalize=5,
-                            max_pool_s2d_bwd=2)
+                            max_pool_s2d_bwd=2, norm_stats=30)
     torch.testing.assert_close(l_gpu, l_cpu, rtol=1e-5, atol=1e-6)
     # each leaf also within 2e-2 of its own norm (LEAF_RTOL_PORT,
     # tests/test_torch_train.py)
@@ -279,7 +279,7 @@ def test_apply_fast_conv_stats_on_card_matches_cpu(dev):
         reset_launch_counts()
         got = se_unet_apply_fast(model.to(dev).params_tree(), x.to(dev), cfg=cfg)
     assert launch_counts == _counts(gathered_epilogue=7, phased_conv_stats=5,
-                                    dil2_conv_stats=3)
+                                    dil2_conv_stats=3, norm_stats=7)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g.cpu(), r, rtol=1e-3, atol=1e-4)
 
@@ -505,7 +505,8 @@ def test_apply_fast_conv_epi_on_card_matches_cpu(dev):
         reset_launch_counts()
         got = se_unet_apply_fast(model.to(dev).params_tree(), x.to(dev), cfg=cfg)
     assert launch_counts == _counts(gathered_epilogue=10, phased_epilogue=5,
-                                    dil2_dense_conv_stats=3, phased_conv_ungathered=5)
+                                    dil2_dense_conv_stats=3, phased_conv_ungathered=5,
+                                    norm_stats=12)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g.cpu(), r, rtol=1e-3, atol=1e-4)
 
@@ -714,3 +715,85 @@ def test_instance_norm_leaky_ring_smem_matches_the_rule(dev):
     lib = build_kernels().lib
     assert lib.airseg_norm_leaky_ring_smem() == 128 + norm_leaky.RING_SLOTS * norm_leaky.RING_BYTES
     assert [norm_leaky.ring_stages(bwd) for bwd in (False, True)] == [6, 3]
+
+
+# K12 (norm_stats): f32 sums in another order than the plain version's
+# (per thread over its rows, then over a block's threads, then over the
+# blocks). Each is held to the float64 sums within NS_RTOL of the lane's
+# sum of |y| (s1) or of its sum of squares (s2): a thread adds up to ~500
+# rows in turn (worst case 500 * 2^-24 = 3e-5; rounding errors at random
+# ~sqrt(500) * 2^-24 = 1.3e-6), the plain version's cascade less.
+NS_RTOL = 1e-5
+# (block, form, s2d grid n, 8C) of every statistics call of a tile batch of
+# 128^3 tiles at batch 8: the 10 gathered blocks and the 5 phased ones
+NS_CALLS = [("ec1", False, 64, 64), ("ec2", False, 64, 128), ("ec3", False, 64, 256),
+            ("ec33", False, 64, 256), ("x33", False, 64, 256), ("ec5", False, 32, 256),
+            ("ec6", False, 32, 512), ("ec63", False, 32, 512), ("x63", False, 32, 512),
+            ("dc42", False, 32, 256), ("ec4", True, 32, 256), ("dc3", True, 32, 512),
+            ("dc4", True, 32, 256), ("dc5", True, 64, 256), ("dc6", True, 64, 128)]
+
+
+def _ns_check(got, y, phased):
+    """The (2, B, 8C) sums against the float64 sums of y, within NS_RTOL."""
+    exact = eps.norm_stats_plain(y.double(), phased)
+    mag = torch.stack([eps.norm_stats_plain(y.double().abs(), phased)[0], exact[1]])
+    assert got.shape == exact.shape and got.dtype == torch.float32
+    err = ((got.double() - exact).abs() / (NS_RTOL * mag + 1e-30)).max()
+    assert float(err) <= 1.0, float(err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block,phased,n,c8", NS_CALLS, ids=[c[0] for c in NS_CALLS])
+def test_norm_stats_kernel_at_the_model_shapes(dev, dtype, block, phased, n, c8):
+    """K12 at every statistics call of the main path (batch 8, 128^3
+    tiles), both dtypes: against its plain version and the float64 sums,
+    one launch counted, two launches bitwise equal."""
+    g = torch.Generator(device=dev).manual_seed(n + c8)
+    m = n + 1 if phased else n
+    y = torch.randn((8, m, m, m, c8), generator=g, device=dev).to(dtype)
+    reset_launch_counts()
+    got = eps.norm_stats(y, phased)
+    again = eps.norm_stats(y, phased)
+    torch.cuda.synchronize()
+    assert launch_counts == _counts(norm_stats=2)
+    assert torch.equal(got, again)
+    _ns_check(got, y, phased)
+    _ns_check(eps.norm_stats_plain(y, phased), y, phased)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,nz,n,c8,xw", [(8, 32, 64, 256, None), (8, 16, 32, 512, None),
+                                          (3, 2, 5, 64, 9), (1, 1, 9, 128, None),
+                                          (2, 3, 33, 256, 40), (1, 4, 4, 64, None)])
+def test_norm_stats_kernel_on_slabs_and_ragged_shapes(dev, dtype, b, nz, n, c8, xw):
+    """Both forms on depth slabs of the mesh's `space` axis (the model's
+    slabs of 128^3 crops on 2 ranks, dc5 and dc3) and on ragged grids: the
+    phased form on y_ext (B, nz+1, n+1, xw, 8C), xw > n+1 read through the
+    strides, the gathered form on (B, nz, n, n, 8C); the row walk wraps
+    where its step exceeds n."""
+    g = torch.Generator(device=dev).manual_seed(nz * n + c8)
+    y = torch.randn((b, nz + 1, n + 1, xw or n + 1, c8), generator=g, device=dev).to(dtype)
+    _ns_check(eps.norm_stats(y, phased=True), y, True)
+    yg = y[:, :nz, :n, :n].contiguous()
+    _ns_check(eps.norm_stats(yg), yg, False)
+
+
+def test_norm_stats_refuses_what_the_kernel_does_not_take(dev):
+    """float64, a non-contiguous y, a width whose vectors do not split a
+    lane block, a gathered y that is not (B, nz, n, n, 8C): raises, never a
+    plain fallback."""
+    y = torch.randn((2, 5, 5, 5, 64), device=dev)
+    reset_launch_counts()
+    with pytest.raises(TypeError):
+        eps.norm_stats(y.double())
+    with pytest.raises(TypeError):
+        eps.norm_stats(y.double(), phased=True)
+    with pytest.raises(ValueError):
+        eps.norm_stats(y.transpose(1, 2))
+    with pytest.raises(ValueError):
+        eps.norm_stats(y[..., :32], phased=True)
+    with pytest.raises(ValueError):
+        eps.norm_stats(y.to(torch.bfloat16)[..., :32].contiguous(), phased=True)  # C = 4 lanes
+    with pytest.raises(ValueError):
+        eps.norm_stats(y[:, :, :4].contiguous())
+    assert launch_counts == _counts()
