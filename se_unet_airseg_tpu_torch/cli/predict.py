@@ -4,13 +4,19 @@ the whole-volume sliding window in EVAL mode, DTI(0.5, 0.4), border
 suppression, maximum_3d, save `<case>_pred_mask.nii.gz` + STL.
 
     python -m se_unet_airseg_tpu_torch.cli.predict --model SE_UNet_43.pt \\
-        --ct_dir example_dcm --save_path predicted_airways [--device cpu]
+        --ct_dir example_dcm --save_path predicted_airways [--device cpu] \\
+        [--arch swin_unetr]
+
+`--model` is the checkpoint, as in the reference's prediction.py; `--arch`
+the network it holds.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+
+ARCHS = ("se_unet", "swin_unetr")
 
 
 def main(argv=None):
@@ -24,16 +30,17 @@ def main(argv=None):
     p.add_argument("--cube", type=int, default=128)
     p.add_argument("--step", type=int, default=64)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--arch", choices=ARCHS, default="se_unet",
+                   help="the network: se_unet (default) or swin_unetr (a MONAI SwinUNETR "
+                        "state_dict at its published widths)")
     a = p.parse_args(argv)
 
     import torch
 
     from ..infer.engine import network_prediction
-    from ..models.se_unet import SEUNetConfig
-    from ..train.checkpoint import load_params
+    from ..train.checkpoint import load_model
 
-    params = load_params(a.model)
-    cfg = SEUNetConfig(compute_dtype=torch.bfloat16 if a.bf16 else torch.float32)
+    params, cfg = load_model(a.arch, a.model, torch.bfloat16 if a.bf16 else torch.float32)
 
     cases = sorted(os.listdir(a.ct_dir))
     for case in cases:

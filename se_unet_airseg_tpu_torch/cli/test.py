@@ -6,13 +6,15 @@ aggregate + boxplot) over ./data/test.json.
 
     python -m se_unet_airseg_tpu_torch.cli.test --data_root AFTER_DATA \\
         --file_path data/test.json --file_root data [--params SE_UNet_43.pt] \\
-        [--device cpu]
+        [--device cpu] [--arch swin_unetr]
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+
+ARCHS = ("se_unet", "swin_unetr")
 
 
 def main(argv=None):
@@ -35,14 +37,16 @@ def main(argv=None):
     p.add_argument("--step", type=int, default=64)
     p.add_argument("--bf16", action="store_true", default=True)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--arch", choices=ARCHS, default="se_unet",
+                   help="the network: se_unet (default) or swin_unetr (a MONAI SwinUNETR "
+                        "state_dict at its published widths)")
     a = p.parse_args(argv)
 
     import torch
 
     from ..data.splits import load_json_file
     from ..infer.engine import run_test
-    from ..models.se_unet import SEUNetConfig
-    from ..train.checkpoint import load_params
+    from ..train.checkpoint import load_model
     from ..train.logbook import best_epoch_test
 
     if a.params:
@@ -51,9 +55,7 @@ def main(argv=None):
         ep = a.epoch if a.epoch is not None else best_epoch_test(a.log_path)
         path = os.path.join(a.model_dir, f"SE_UNet_{ep}.pt")
         print(f"best epoch: {ep} -> {path}")
-    params = load_params(path)
-
-    cfg = SEUNetConfig(compute_dtype=torch.bfloat16 if a.bf16 else torch.float32)
+    params, cfg = load_model(a.arch, path, torch.bfloat16 if a.bf16 else torch.float32)
     names = load_json_file(a.file_path, "-1")
     os.makedirs(os.path.dirname(a.testlog_savepath) or ".", exist_ok=True)
     run_test(

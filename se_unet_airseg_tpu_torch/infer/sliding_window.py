@@ -18,9 +18,12 @@ Two routes, equal in value:
 
 The forward is the s2d fast path (`models.se_unet.apply_fast`), or with
 `fast=False` the reference-layout `models.se_unet.apply` on the per-tile
-route. In train mode (`train_mode=True`, as the validation and test
-drivers run it) DropLayer draws its uniforms per tile batch, from a
-`torch.Generator` or from `drop_draws`, one `[r_en, r_de]` per batch.
+route. A `SwinUNETRConfig` runs Swin UNETR (`models.swin_unetr.apply`) on
+the per-tile route, its one logit map through the same sigmoid, overlap
+average and trits; the model is chosen once, at construction. In train
+mode (`train_mode=True`, as the validation and test drivers run it)
+DropLayer draws its uniforms per tile batch, from a `torch.Generator` or
+from `drop_draws`, one `[r_en, r_de]` per batch.
 
 Under a mesh (`parallel.make_mesh`; JAX `sliding_window.py:165-193,
 277-282`) every data row runs its batch/n_data tiles of each tile batch
@@ -49,6 +52,7 @@ import torch
 from torch import nn
 
 from ..data.tiling import pad_positions_to_batch, tile_positions
+from ..models import swin_unetr
 from ..models.se_unet import (
     SEUNetConfig,
     apply as se_unet_apply,
@@ -157,7 +161,12 @@ class SlidingWindowRunner:
     `mesh` (a `parallel.DataMesh`) splits every tile batch over its data
     rows and each tile's depth over its space ranks: `batch` must be a
     multiple of n_data, `cube` of 8 x n_space, and the default device is
-    the rank's."""
+    the rank's.
+
+    With a `models.swin_unetr.SwinUNETRConfig` the runner runs Swin UNETR
+    (`params` its MONAI-named state dict) on the per-tile route; that
+    model draws nothing in train mode, so `train_mode` is eval mode for it,
+    and a mesh may split its tile batches over data rows only."""
 
     def __init__(self, params, cfg: SEUNetConfig = SEUNetConfig(), *,
                  cube: int = 128, step: int = 64, batch: int = 1,
@@ -171,6 +180,12 @@ class SlidingWindowRunner:
             raise ValueError(f"cube {cube} must be a multiple of 8 x the mesh's "
                              f"{mesh.space_size} space ranks")
         self.space = mesh if mesh is not None and mesh.space_size > 1 else None
+        self.swin = isinstance(cfg, swin_unetr.SwinUNETRConfig)
+        if self.swin:
+            if self.space is not None:
+                raise ValueError("Swin UNETR does not split a tile's depth over space ranks")
+            fast, train_mode = False, False
+            self._forward = self._forward_swin
         self.mesh = mesh
         self.device = resolve_device(device, mesh)
         self.cfg = cfg
@@ -193,8 +208,11 @@ class SlidingWindowRunner:
         if isinstance(params, nn.Module):
             params = params.params_tree()
         self.params = _tree_to(params, self.device)
-        self.fast_params = (prepare_fast_params(self.params, self.cfg, n=self.cube // 2)
-                            if self.fast else None)
+        if self.swin:
+            self.fast_params = swin_unetr.prepare(self.params, self.cfg)
+        else:
+            self.fast_params = (prepare_fast_params(self.params, self.cfg, n=self.cube // 2)
+                                if self.fast else None)
         return self
 
     def _s2d_io_ok(self, padded_shape, pos: np.ndarray) -> bool:
@@ -216,6 +234,12 @@ class SlidingWindowRunner:
         else:
             outs = se_unet_apply(self.params, tiles, cfg=self.cfg, space=self.space, **train)
         p = outs[self.head_idx].to(torch.float32)
+        return torch.sigmoid(p) if self.use_sigmoid else p
+
+    def _forward_swin(self, tiles, train: dict):
+        """Swin UNETR's scores of one tile batch (`_forward` of a Swin runner)."""
+        p = swin_unetr.apply(self.params, tiles, cfg=self.cfg,
+                             prepared=self.fast_params).to(torch.float32)
         return torch.sigmoid(p) if self.use_sigmoid else p
 
     def _step(self, vol, pred, positions, shift: float, draws):

@@ -7,6 +7,7 @@ from .se_unet import (
     num_params,
     prepare_fast_params,
 )
+from .swin_unetr import SwinUNETRConfig, apply as swin_unetr_apply
 from .torch_import import (
     jax_params_from_torch,
     load_torch_checkpoint,
@@ -17,6 +18,7 @@ from .torch_import import (
 __all__ = [
     "SEUNet",
     "SEUNetConfig",
+    "SwinUNETRConfig",
     "get_model",
     "jax_params_from_torch",
     "load_torch_checkpoint",
@@ -26,4 +28,5 @@ __all__ = [
     "se_unet_apply",
     "se_unet_apply_fast",
     "state_dict_from_jax_params",
+    "swin_unetr_apply",
 ]

@@ -2,7 +2,7 @@
 kernels' wrappers (fused epilogue, phased normalize, pool backward, conv
 + statistics, the ungathered phased conv, InstanceNorm + LeakyReLU)."""
 
-from .conv import conv3d
+from .conv import conv3d, conv_transpose3d
 from .conv_stats import (
     dil2_conv_stats,
     dil2_dense_conv_stats,
@@ -28,6 +28,7 @@ from .windowing import hu_dual_window
 __all__ = [
     "build_kernels",
     "conv3d",
+    "conv_transpose3d",
     "dil2_conv_stats",
     "dil2_dense_conv_stats",
     "dil2_gated_block",

@@ -72,6 +72,21 @@ def load_params(path: str) -> dict:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def load_model(arch: str, path: str, compute_dtype: torch.dtype):
+    """(parameters, configuration) of the network `arch` (`se_unet`, or
+    `swin_unetr`: a MONAI `SwinUNETR` state_dict at its published widths)
+    from the checkpoint at `path`, for the runner and the CLIs."""
+    if arch == "swin_unetr":
+        from ..models.swin_unetr import SwinUNETRConfig, load_params as load_swin
+
+        return load_swin(path), SwinUNETRConfig(compute_dtype=compute_dtype)
+    if arch != "se_unet":
+        raise ValueError(f"unknown network {arch!r}")
+    from ..models.se_unet import SEUNetConfig
+
+    return load_params(path), SEUNetConfig(compute_dtype=compute_dtype)
+
+
 def save_state(state, model_dir: str, epoch: int) -> str:
     """Write `<model_dir>/state_<epoch>.pt`: the parameter tree, the
     optimizer's `state_dict()`, the step, and the parameter paths in the

@@ -27,7 +27,11 @@ global on every rank:
     ratio taken on one slab would be another quantity); the ranks'
     gradients then add up to the one-process gradient, in one all_reduce
     over all ranks of one bucket (1,520,314 float32 parameters in 117
-    leaves, 6.1 MB), each slab adding its share;
+    leaves, 6.1 MB), each slab adding its share. Under a profiler session
+    (`utils.profiling`) the loss sum is the span `mesh.loss_sum`, the
+    bucket's all_reduce with the read of the ranks' status after it
+    `mesh.grad_reduce`, and `place`'s upload `train.upload` with its bytes
+    in the counter `train.h2d_bytes`;
   * with `shard_space` the forward runs on depth slabs (`apply_fast(...,
     space=mesh)`): halo exchanges around the convs and InstanceNorm sums
     over the space ranks, in the forward and in the backward (remat
@@ -92,6 +96,7 @@ from ..losses import (
 )
 from ..models.se_unet import SEUNetConfig, _leaves, _tree_map, apply, apply_fast, draw_dropout
 from ..parallel.mesh import all_sum, batch_sharding, check_mesh, flat, replicated, unflat
+from ..utils.profiling import count, span
 
 
 @dataclasses.dataclass
@@ -250,10 +255,14 @@ def _make_sharded_step(cfg: SEUNetConfig, stage: int, mesh, fast: bool, shard_sp
         """This rank's rows of each batch key (all of them when the batch
         does not divide over the data rows) and, with `shard_space`, their
         depth slab, as tensors on `device` (default the mesh's); JAX
-        `step.py:205-228`."""
+        `step.py:205-228`. The span `train.upload`, its bytes counted in
+        `train.h2d_bytes`, as `stages._feed` off the mesh."""
         b = batch["image"].shape[0]
         lay = (batch_sharding if b % mesh.data_size == 0 else replicated)(mesh, shard_space)
-        return {k: torch.as_tensor(lay(v)).to(device or mesh.device) for k, v in batch.items()}
+        with span("train.upload"):
+            out = {k: torch.as_tensor(lay(v)).to(device or mesh.device) for k, v in batch.items()}
+        count("train.h2d_bytes", sum(t.nbytes for t in out.values()))
+        return out
 
     def local_sums(params, local, draws, rows, b):
         """This rank's loss sums and, for stages 2/3, its crops' GUL sums
@@ -291,7 +300,8 @@ def _make_sharded_step(cfg: SEUNetConfig, stage: int, mesh, fast: bool, shard_sp
         except Exception as e:  # every rank must still reach both collectives
             error = e
             vec = torch.zeros(n_sums + (2 * b if stage > 1 else 0), device=dev)
-        total = all_sum(vec)
+        with span("mesh.loss_sum"):
+            total = all_sum(vec)
         parts = list(torch.split(total[:n_sums], _N_SUMS[stage]))
         loss, aux = _stage_losses(stage, [p.unbind() for p in parts])
         if error is None:
@@ -303,8 +313,9 @@ def _make_sharded_step(cfg: SEUNetConfig, stage: int, mesh, fast: bool, shard_sp
         oom = isinstance(error, torch.cuda.OutOfMemoryError)
         bucket = flat([torch.zeros_like(t) if error is not None or g is None else g
                        for t, g in zip(leaves, grads)], float(error is not None), float(oom))
-        dist.all_reduce(bucket)
-        n_failed, n_oom = int(bucket[-2].item()), int(bucket[-1].item())
+        with span("mesh.grad_reduce"):
+            dist.all_reduce(bucket)
+            n_failed, n_oom = int(bucket[-2].item()), int(bucket[-1].item())
         if n_failed:
             state.optimizer.zero_grad(set_to_none=True)
             if error is not None and not oom:

@@ -14,8 +14,11 @@ where the JAX package uses `jax.profiler`.
 Spans and counters inside the program (`span`, `count`, `record`). The
 program names its host work where it happens: the data layer's parts
 (`data.*`), the runner's (`runner.*`), the step's upload
-(`train.upload`, counter `train.h2d_bytes`) and the norm statistics
-(`norm.stats`, `norm.bwd_stats`). They cost nothing unless a
+(`train.upload`, counter `train.h2d_bytes`, on a mesh too), the norm
+statistics (`norm.stats`, `norm.bwd_stats`), the mesh step's collectives
+(`mesh.loss_sum`, `mesh.grad_reduce`) and Swin UNETR's parts
+(`swin.stage`, `swin.attn`, `unetr.block`, `unetr.up`; counters
+`swin.tokens`, `swin.tokens_attended`). They cost nothing unless a
 `torch.profiler` session is open in the process (`device_trace`, or the
 caller's own `torch.profiler.profile`): with none, `span` returns a
 shared no-op after one flag check and `count` returns. Under a session

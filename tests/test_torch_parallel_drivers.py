@@ -31,6 +31,12 @@ a hang fails a test.
     process writes it; the checkpoints load to the final parameters.
   * The losses' sums: the ratios equal the whole-batch formulas bitwise,
     the shards' sums add up to the whole batch's.
+  * The benchmark's four-card driver (`portbench/drivers/train_stage1_dp.py::
+    rank_steps`) on 2 ranks at 16^3, a global batch of 2, float32: rank 0
+    cuts and broadcasts the batches, the checked steps, the window's step
+    count from rank 0's timing, the comparison with the one-process
+    reference; every check passes, the ranks' parameters bitwise equal
+    after the checked steps (`rank_param_diff` 0).
   * `make_mesh(n_space=2)` on the 2 ranks: a (1, 2) mesh, each rank's
     depth slab from `batch_sharding(shard_space=True)`; what still raises:
     `conv_stats` / `conv_epi` with `space=` (ROADMAP M9b), `shard_space`
@@ -39,12 +45,16 @@ a hang fails a test.
 
 import json
 import os
+import time
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
 import pytest
 import torch
 
+from portbench import harness
+from portbench.drivers import train_stage1_dp
 from se_unet_airseg_tpu_torch import losses
 from se_unet_airseg_tpu_torch.infer import SlidingWindowRunner
 from se_unet_airseg_tpu_torch.io import write_nifti
@@ -177,19 +187,21 @@ def _mesh2_rank(mesh):
             "slab": batch_sharding(m, shard_space=True)(x), "rows": batch_sharding(m)(x)}
 
 
-def _step_runs(mesh, tree):
+def _step_runs(mesh, tree, bench_ctx):
     """On every rank: one sharded step (B=4), three replicated ones (B=3,
-    1, 3), the out-of-memory run with its remat=True reference, and a
-    (1, 2) mesh."""
+    1, 3), the out-of-memory run with its remat=True reference, a (1, 2)
+    mesh, and last the benchmark's four-card driver on these 2 ranks (in
+    this spawn, not one of its own, to spare the ranks' start-up)."""
     return {"sharded": _steps(mesh, tree, [4]), "replicated": _steps(mesh, tree, [3, 1, 3]),
             "oom": _oom_rank(mesh, tree), "remat": _steps(mesh, tree, [4], True),
-            "error": _error_rank(mesh, tree), "mesh2": _mesh2_rank(mesh)}
+            "error": _error_rank(mesh, tree), "mesh2": _mesh2_rank(mesh),
+            "bench": train_stage1_dp.rank_steps(mesh, bench_ctx)}
 
 
 @pytest.fixture(scope="module")
 def step_runs(one_thread):
     tree = _tree()
-    ranks = spawn(_step_runs, 2, tree, timeout_s=TIMEOUT_S)
+    ranks = spawn(_step_runs, 2, tree, _bench_ctx(), timeout_s=TIMEOUT_S)
     one = {"sharded": _steps(None, _tree_map(torch.clone, tree), [4]),
            "replicated": _steps(None, _tree_map(torch.clone, tree), [3, 1, 3])}
     return ranks, one
@@ -472,3 +484,32 @@ def test_space_axis_and_non_meshes_raise(step_runs):
                                               device="cpu")):
         with pytest.raises(TypeError, match="DataMesh"):
             build()
+
+
+def _bench_ctx() -> harness.Context:
+    """The four-card cell's context at a tiny size: SE-UNet in float32,
+    16^3 crops from two small phantom cases, 2 ranks with 1 crop each."""
+    root = Path(__file__).resolve().parents[1] / "portbench"
+    config = json.loads((root / "configs/seunet-bf16.json").read_text())
+    config.update(compute_dtype="float32", remat=False)
+    mix = json.loads((root / "traffic/stage1_resident_dp4.json").read_text())
+    mix.update(cases=[[24, 24, 24], [24, 16, 24]], pool=4, batch=2, ranks=2, cube=16,
+               warmup_steps=0)
+    limits = json.loads((root / "checks/train-bf16-s1-dp4.json").read_text())
+    return harness.Context(workload="train-bf16-s1-dp4", seed=2**33 + 5, seconds=0.05,
+                           trace=False, config=config, mix=mix, limits=limits,
+                           t0=time.perf_counter(), device="cpu")
+
+
+def test_benchmark_rank_steps_on_two_ranks(step_runs):
+    ranks, _ = step_runs
+    out = [r["bench"] for r in ranks]
+    assert len(out) == _bench_ctx().mix["ranks"] and out[1] is None
+    checks = {c.name: c for c in out[0].checks}
+    assert set(checks) == {"loss_gap", "grad_gap_vs_bf16", "change_gap_median",
+                           "rank_param_diff"}
+    assert checks["rank_param_diff"].value == 0.0
+    assert all(c.ok for c in checks.values()), checks
+    rec = out[0].record
+    assert rec.work["steps"] >= 1 and rec.work["crops"] == 2 * rec.work["steps"]
+    assert rec.work["ranks"] == 2 and rec.window_s > 0

@@ -1,8 +1,9 @@
 """The port's spans and counters (`utils.profiling`) on the CPU: off
 without a profiler session; under one, the record's parents, threads and
 clock against the profiler's own trace; `device_trace` writing a plain
-thread's spans into its file; and the spans of the data layer, the runner
-and the step's upload where the program places them."""
+thread's spans into its file; and the spans of the data layer, the runner,
+the step's upload and the mesh step's collectives (on a 1-rank gloo group
+in this process) where the program places them."""
 
 import json
 import os
@@ -14,6 +15,7 @@ import time
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from se_unet_airseg_tpu_torch.data import Prefetcher, Stage1Crops
@@ -21,7 +23,13 @@ from se_unet_airseg_tpu_torch.infer import SlidingWindowRunner
 from se_unet_airseg_tpu_torch.infer.sliding_window import fetch_trits
 from se_unet_airseg_tpu_torch.io import write_nifti
 from se_unet_airseg_tpu_torch.models import SEUNet, SEUNetConfig
-from se_unet_airseg_tpu_torch.train import stages
+from se_unet_airseg_tpu_torch.parallel import make_mesh
+from se_unet_airseg_tpu_torch.train import (
+    create_train_state,
+    make_optimizer,
+    make_train_step,
+    stages,
+)
 from se_unet_airseg_tpu_torch.utils import profiling
 from se_unet_airseg_tpu_torch.utils.profiling import count, span
 
@@ -213,3 +221,37 @@ def test_epoch_pass_counts_the_uploaded_bytes():
     rec = profiling.record()
     assert rec.counts == {"train.h2d_bytes": want}
     assert [s.name for s in rec.spans] == ["train.upload"] * 3
+
+
+@pytest.fixture
+def one_rank(tmp_path):
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        yield make_mesh(n_data=1, devices=["cpu"])
+    finally:
+        dist.destroy_process_group()
+
+
+def test_mesh_step_spans(one_rank):
+    """The sharded step under a profiler session: `train.upload` in
+    `step.place`, `mesh.loss_sum` and `mesh.grad_reduce` once each a step,
+    `train.h2d_bytes` the batch's bytes; nothing without a session."""
+    tree = SEUNet(SEUNetConfig(), generator=torch.Generator().manual_seed(3)).params_tree()
+    state = create_train_state(tree, make_optimizer()[0])
+    step = make_train_step(SEUNetConfig(), stage=1, mesh=one_rank)
+    r = np.random.default_rng(0)
+    batch = {"image": r.random((1, 16, 16, 16, 2), dtype=np.float32),
+             "label": (r.random((1, 16, 16, 16)) > 0.7).astype(np.float32),
+             "weight": np.ones((1, 16, 16, 16), np.float32)}
+    gen = torch.Generator().manual_seed(1)
+    before = profiling.record()
+    step(state, batch, gen)
+    assert profiling.record() == before
+    with _cpu_profile():
+        step(state, batch, gen)
+    rec = profiling.record()
+    names = [s.name for s in rec.spans]
+    assert [n for n in names if n.startswith(("mesh.", "train."))] == [
+        "train.upload", "mesh.loss_sum", "mesh.grad_reduce"]
+    assert rec.counts == {"train.h2d_bytes": sum(v.nbytes for v in batch.values())}
