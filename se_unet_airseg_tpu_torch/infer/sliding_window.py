@@ -34,18 +34,23 @@ every rank accumulates all of them in the same order: the volume is
 returned on every rank. In train mode each rank draws the batch's global
 uniforms and uses its rows of them.
 
+The overlap average divides by the number of tiles over each voxel. That
+count is a function of the tile grid alone, a Cartesian product of per-axis
+starts plus repeats of the first position, so it is built on the device
+for every volume as the outer product of three 1-D counts
+(`inv_overlap_count`), with no host volume and no upload.
+
 Under a profiler session (`utils.profiling`) a volume's host work is the
 span `runner.volume` with `runner.prep` (pad, cast and upload of the
-volume), one `runner.tile_batch` per tile batch and, when the overlap
-count of the volume's shape is not cached, `runner.inv_count` under it;
-`fetch_trits` is `runner.fetch` (the summary's copy waits for the
-device) with `runner.decode` (the mixed chunks' copies and the base-3
-unpack) under it.
+volume), one `runner.tile_batch` per tile batch and `runner.inv_count`
+(the count's launches) under it; `fetch_trits` is `runner.fetch` (the
+summary's copy waits for the device) with `runner.decode` (the mixed
+chunks' copies and the base-3 unpack) under it.
 """
 
 from __future__ import annotations
 
-from collections import OrderedDict
+import math
 
 import numpy as np
 import torch
@@ -144,6 +149,35 @@ def trits_to_scores(trits: np.ndarray, h_thresh: float, l_thresh: float) -> np.n
     return lut[trits]
 
 
+def inv_overlap_count(padded_shape, pos: np.ndarray, cube: int, device) -> torch.Tensor:
+    """float32 1 / max(count, 1) on `device`, where count is the number of
+    `cube`-sided tiles at `pos` over each voxel of the padded volume.
+
+    `pos` is `data.tiling`'s grid: the Cartesian product of per-axis
+    starts, then repeats of its first position. The count is the outer
+    product of the three axes' counts plus the repeats over the first
+    cube; small integers, exact in float32, so the reciprocal equals the
+    per-tile sum's bit for bit."""
+    pos = np.asarray(pos)
+    starts = [np.unique(pos[:, a]) for a in range(3)]
+    n_grid = math.prod(len(s) for s in starts)
+    n_rep = int((pos == pos[0]).all(axis=1).sum()) - 1
+    if len(np.unique(pos, axis=0)) != n_grid or n_grid + n_rep != len(pos):
+        raise ValueError(f"{len(pos)} tile positions are not a grid of {n_grid} plus "
+                         f"{n_rep} repeats of the first")
+    axes = []
+    for extent, axis_starts in zip(padded_shape, starts):
+        a = torch.zeros(extent, dtype=torch.float32, device=device)
+        for s in axis_starts.tolist():
+            a[s : s + cube] += 1.0
+        axes.append(a)
+    cnt = (axes[0][:, None] * axes[1])[:, :, None] * axes[2]
+    if n_rep:
+        x, y, z = pos[0].tolist()
+        cnt[x : x + cube, y : y + cube, z : z + cube] += n_rep
+    return cnt.clamp_min_(1.0).reciprocal_()
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -162,6 +196,10 @@ class SlidingWindowRunner:
     rows and each tile's depth over its space ranks: `batch` must be a
     multiple of n_data, `cube` of 8 x n_space, and the default device is
     the rank's.
+
+    The runner holds no volume between calls: each volume's overlap count
+    is built anew on the device (`inv_overlap_count`), every rank of a mesh
+    the same.
 
     With a `models.swin_unetr.SwinUNETRConfig` the runner runs Swin UNETR
     (`params` its MONAI-named state dict) on the per-tile route; that
@@ -197,10 +235,6 @@ class SlidingWindowRunner:
         self.train_mode = train_mode
         self.fast = fast
         self.set_params(params)
-        # reciprocal overlap counts per padded shape, LRU-capped (each
-        # entry is a device-resident f32 volume)
-        self._inv_cnt_cache: OrderedDict = OrderedDict()
-        self._inv_cnt_cap = 2
 
     @torch.inference_mode()
     def set_params(self, params) -> "SlidingWindowRunner":
@@ -322,25 +356,6 @@ class SlidingWindowRunner:
         for _ in range(len(pos) // self.batch):
             draw_dropout(self.batch, self.cfg, generator)
 
-    def _inv_count(self, padded_shape: tuple, pos: np.ndarray):
-        """Reciprocal overlap-count volume: a function of the tile grid
-        alone, computed on the host once per shape and kept on device."""
-        key = (padded_shape, len(pos))
-        inv = self._inv_cnt_cache.get(key)
-        if inv is None:
-            with span("runner.inv_count"):
-                cnt = np.zeros(padded_shape, np.float32)
-                c = self.cube
-                for x, y, z in np.asarray(pos):
-                    cnt[x : x + c, y : y + c, z : z + c] += 1.0
-                inv = torch.from_numpy(1.0 / np.maximum(cnt, 1.0)).to(self.device)
-            self._inv_cnt_cache[key] = inv
-            while len(self._inv_cnt_cache) > self._inv_cnt_cap:
-                self._inv_cnt_cache.popitem(last=False)
-        else:
-            self._inv_cnt_cache.move_to_end(key)
-        return inv
-
     def _draws(self, n_batches: int, generator, drop_draws) -> list[dict]:
         """Each tile batch's train-mode arguments of the model: DropLayer
         draws from `generator`, or that batch's `[r_en, r_de]` of
@@ -371,7 +386,9 @@ class SlidingWindowRunner:
             vol = torch.from_numpy(np.ascontiguousarray(vol_np)).to(self.device)
         pred = self._run_volume(vol, pos, self._s2d_io_ok(vol_np.shape, pos),
                                 float(hu_shift), draws)
-        inv_cnt = self._inv_count(tuple(vol_np.shape), pos)
+        # queued after the tile batches, so no count volume lives through the forward
+        with span("runner.inv_count"):
+            inv_cnt = inv_overlap_count(vol_np.shape, pos, self.cube, self.device)
         return pred, inv_cnt, vol_np.shape, orig_shape
 
     @staticmethod

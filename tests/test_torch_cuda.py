@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, against their plain versions.
+"""The port's CUDA kernels on the card, against their plain versions, and
+the runner's overlap count built on the card against the host loop.
 
 Every test here needs a CUDA device and nvcc and is marked `cuda`; on a
 CPU-only host each skips. This file imports no JAX, so it also runs on
@@ -9,9 +10,12 @@ the GPU host, which has none:
 (`--noconftest`: tests/conftest.py sets up JAX, which that host lacks.)
 """
 
+import numpy as np
 import pytest
 import torch
 
+from se_unet_airseg_tpu_torch.data import pad_positions_to_batch, tile_positions
+from se_unet_airseg_tpu_torch.infer.sliding_window import inv_overlap_count
 from se_unet_airseg_tpu_torch.models import SEUNet, SEUNetConfig, se_unet_apply_fast
 from se_unet_airseg_tpu_torch.models.se_unet import _leaves, _tree_map
 from se_unet_airseg_tpu_torch.ops import conv_stats as pcs
@@ -797,3 +801,25 @@ def test_norm_stats_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError):
         eps.norm_stats(y[:, :, :4].contiguous())
     assert launch_counts == _counts()
+
+
+# the benchmark's lung-box stream (portbench/traffic/lungbox_stream.json)
+LUNGBOX_SHAPES = [(416, 320, 416), (256, 224, 288), (352, 288, 352), (320, 256, 320),
+                  (384, 256, 384), (288, 224, 320), (352, 320, 384), (320, 288, 352)]
+
+
+@pytest.mark.parametrize("shape", LUNGBOX_SHAPES)
+def test_overlap_count_on_card_equals_the_tile_loop(dev, shape):
+    """The runner's reciprocal overlap count built on the card (cube 128,
+    step 64, batch 8) against 1 / max(count, 1) of the per-tile host loop,
+    bit for bit: the card's float32 reciprocal rounds as numpy's divide.
+    Counts only; no model runs."""
+    cube = 128
+    pos = pad_positions_to_batch(tile_positions(shape, cube, 64), 8)
+    cnt = np.zeros(shape, np.float32)
+    for x, y, z in pos:
+        cnt[x : x + cube, y : y + cube, z : z + cube] += 1.0
+    want = 1.0 / np.maximum(cnt, 1.0)
+    got = inv_overlap_count(shape, pos, cube, dev)
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32), want.view(np.uint32))

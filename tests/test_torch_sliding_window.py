@@ -8,7 +8,14 @@ the host codec against the JAX one.
 Train mode (DropLayer on, as validation and test run the net): JAX folds
 the batch index into its key per tile batch and splits it per head; the
 port gets those draws as `drop_draws`, one `[r_en, r_de]` per batch
-(`jax_drop_draws`), at the same tolerances."""
+(`jax_drop_draws`), at the same tolerances.
+
+The reciprocal overlap count, built on the device from the tile grid's
+per-axis counts, against the per-tile host loop it replaced (bit for bit),
+and built anew for every volume."""
+
+import gc
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -194,6 +201,63 @@ def test_encoder_head_and_raw_logits(runners):
         x = hu_dual_window(torch.from_numpy(vol))[None]
         want = se_unet_apply_fast(pr.params, x, cfg=SEUNetConfig())[0][0, ..., 0]
     np.testing.assert_allclose(got, want.numpy(), atol=1e-6, rtol=1e-5)
+
+
+def _loop_inv_count(padded_shape, pos, cube: int) -> np.ndarray:
+    """The oracle: 1 added per tile into a host float32 volume, then
+    1 / max(count, 1), as the runner computed it before the count moved to
+    the device."""
+    cnt = np.zeros(padded_shape, np.float32)
+    for x, y, z in pos:
+        cnt[x : x + cube, y : y + cube, z : z + cube] += 1.0
+    return 1.0 / np.maximum(cnt, 1.0)
+
+
+@pytest.mark.parametrize("shape,cube,step,batch", [
+    ((32, 24, 32), 16, 8, 1),   # the step divides every extent
+    ((30, 21, 27), 16, 8, 2),   # clamped last starts: up to 3 tiles an axis
+    ((10, 16, 12), 16, 8, 3),   # undersized, padded to one cube; 2 repeats
+    ((31, 17, 25), 16, 8, 1),   # odd extents (the per-tile route)
+    ((32, 24, 32), 16, 8, 5),   # 18 tiles, 2 repeats of the first
+    ((32, 32, 32), 32, 16, 2),  # one tile and a repeat
+    ((20, 32, 31), 32, 16, 4),  # undersized, padded to one cube; 3 repeats
+    ((48, 32, 40), 32, 16, 3),  # divided, one cube, clamped; 6 tiles
+    ((33, 47, 32), 32, 16, 4),  # odd extents; 4 tiles
+])
+def test_overlap_count_equals_the_tile_loop(shape, cube, step, batch):
+    padded = tuple(int(e) for e in np.maximum(shape, cube))
+    pos = pad_positions_to_batch(tile_positions(padded, cube, step), batch)
+    got = psw.inv_overlap_count(padded, pos, cube, "cpu")
+    assert got.dtype == torch.float32 and tuple(got.shape) == padded
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  _loop_inv_count(padded, pos, cube).view(np.uint32))
+
+
+def test_overlap_count_rejects_positions_off_the_grid():
+    pos = tile_positions((32, 24, 24), 16, 8)
+    with pytest.raises(ValueError, match="not a grid"):
+        psw.inv_overlap_count((32, 24, 24), pos[1:], 16, "cpu")
+    with pytest.raises(ValueError, match="not a grid"):
+        psw.inv_overlap_count((32, 24, 24), np.concatenate([pos, pos[1:2]]), 16, "cpu")
+
+
+def test_runner_builds_the_count_for_every_volume(runners, monkeypatch):
+    """Two volumes of one shape build the count twice, and nothing keeps
+    either count alive after the call."""
+    _, pr = runners
+    real, built = psw.inv_overlap_count, []
+
+    def spy(*args):
+        inv = real(*args)
+        built.append(weakref.ref(inv))
+        return inv
+
+    monkeypatch.setattr(psw, "inv_overlap_count", spy)
+    vol = (np.random.default_rng(6).random((32, 32, 32)) * 1400 - 1000).astype(np.float32)
+    first = pr.predict_hu(vol)
+    np.testing.assert_array_equal(pr.predict_hu(vol), first)
+    gc.collect()
+    assert len(built) == 2 and all(ref() is None for ref in built)
 
 
 @pytest.mark.parametrize("n", [1, 7, 10240 * 3 + 5])

@@ -202,6 +202,15 @@ def test_runner_spans_a_volume(small_runner):
     assert _children(rec, fetch_i) == ["runner.decode"]
     tile_i = next(i for i, s in enumerate(rec.spans) if s.name == "runner.tile_batch")
     assert "norm.stats" in _children(rec, tile_i)
+    # the overlap count is built for every volume, the same shape again too
+    assert names.count("runner.inv_count") == 1
+    assert _children(rec, vol_i).count("runner.inv_count") == 1
+    with _cpu_profile():
+        small_runner.predict_trits_summary_device(vol, hu_shift=-1024.0)
+    again = profiling.record()
+    vol_i = next(i for i, s in enumerate(again.spans) if s.name == "runner.volume")
+    assert [s.name for s in again.spans].count("runner.inv_count") == 1
+    assert _children(again, vol_i).count("runner.inv_count") == 1
 
 
 def test_epoch_pass_counts_the_uploaded_bytes():
