@@ -26,12 +26,10 @@ Needs one CUDA card and nvcc; exits non-zero without them. Phases:
    with their time (CUDA events, median of 20 launches), the plain
    version's time, the memory bound of the call, `copy_ms` (20
    device-to-device `Tensor.copy_` calls of the same read and write bytes:
-   the card's practical floor), the `design` the wrapper picks by shape
-   and `designs_ms`, every design of the form timed on the same inputs
-   (the first port's per-voxel kernel, persistent 16-byte loads,
-   persistent TMA), each held to the chosen design's output first;
+   the card's practical floor) and the `design` the wrapper picks by
+   shape (persistent 16-byte loads or, for the phased forms, TMA);
 4. train kernels: `phased_normalize` at the 5 phased shapes (with
-   `design`, `copy_ms` and `designs_ms` as in phase 3) and the fused pool
+   `design` and `copy_ms` as in phase 3) and the fused pool
    backward at the 2 pool shapes of the train step (batch 8, bf16), the
    same way, and the pool backward against autograd of `amax` (the
    library call);
@@ -530,20 +528,6 @@ def copy_ms(nbytes: int) -> float:
     return ms
 
 
-def design_ms(kernel, phased: bool, *args) -> dict:
-    """ms of each design of the form (`eps.designs`) on the same inputs,
-    each first held to the chosen design's output (bf16: the four-ulp
-    check, the gate logits may sum in another order)."""
-    ref = kernel(*args)
-    out = {}
-    for name in eps.designs(phased):
-        got = kernel(*args, design=name)
-        if not bf16_mismatch(got, ref)[1]:
-            raise AssertionError(f"design {name} disagrees with the chosen design")
-        out[name] = cuda_ms(lambda: kernel(*args, design=name))
-    return out
-
-
 def bf16_mismatch(got: torch.Tensor, ref: torch.Tensor):
     """(max |got - ref|, whether every element is within four bf16 ulps:
     |d| <= 2^-5 |ref| + 2^-12). The kernel keeps the plain version's
@@ -638,8 +622,6 @@ def kernel_phase():
                     "design": eps.pick_design(y, kind == "phased_epilogue"),
                     "ms": ms, "bound_ms": b_ms, "bound_by": b_by, "plain_ms": plain_ms,
                     "copy_ms": copy_ms(2 * got.numel() * got.element_size()),
-                    "designs_ms": design_ms(kernel, kind == "phased_epilogue", y, scale8,
-                                            shift8, wse),
                     "max_abs_diff": err, "frac_elements_differing": frac}
             line["x_bound"] = ms / b_ms
             emit(line)
@@ -728,12 +710,11 @@ def train_kernel_phase(batch: int = BATCH):
                                  f"plain version (max |d| {float(d.max())})")
         b_ms, b_by = bound(y.element_size(), got.numel(), c8, 0, batch)
         line = {"kernel": "phased_normalize", "block": block, "shape": list(y.shape),
-                "design": eps.pick_design(y, True, normalize=True),
+                "design": eps.pick_design(y, True),
                 "ms": cuda_ms(lambda: eps.phased_normalize(y, scale8, shift8)),
                 "bound_ms": b_ms, "bound_by": b_by,
                 "plain_ms": cuda_ms(lambda: eps.phased_normalize_plain(y, scale8, shift8)),
                 "copy_ms": copy_ms(2 * got.numel() * got.element_size()),
-                "designs_ms": design_ms(eps.phased_normalize, True, y, scale8, shift8),
                 "max_abs_diff": float(d.max()),
                 "frac_elements_differing": float((d > 0).float().mean())}
         line["x_bound"] = line["ms"] / b_ms
@@ -2809,7 +2790,7 @@ def slab_kernel_lines() -> dict:
                                  f"disagrees with its plain version (max |d| {err})")
         b_ms, b_by = bound(2, got.numel(), c8, gates)
         out[kind].append({"block": block, "shape": list(y.shape), "gates": gates,
-                          "design": eps.pick_design(y, ext == 1, kind == "phased_normalize"),
+                          "design": eps.pick_design(y, ext == 1),
                           "ms": cuda_ms(lambda: kernel(*args)), "bound_ms": b_ms,
                           "bound_by": b_by, "max_abs_diff": err})
         del y, got, ref
@@ -3078,8 +3059,7 @@ def held_dryrun_kernels(mesh: tuple) -> dict:
         st = stats[kind]
         st["shapes"].add(tuple(args[0].shape))
         if kind != "max_pool_s2d_bwd":
-            st["designs"].add(eps.pick_design(args[0], DRYRUN_KERNELS[kind][1] == 1,
-                                              kind == "phased_normalize"))
+            st["designs"].add(eps.pick_design(args[0], DRYRUN_KERNELS[kind][1] == 1))
         st["max_abs_diff"] = max(st["max_abs_diff"], float(d.max()))
         if args[0].dtype != torch.float32 or got.shape != ref.shape or \
                 not bool((d <= tol).all()) or not torch.isfinite(got).all():

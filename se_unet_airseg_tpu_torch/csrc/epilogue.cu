@@ -1,11 +1,9 @@
 // Fused conv epilogue of the s2d SE-UNet blocks, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of se_unet_airseg_tpu/ops/pallas_s2d.py:
-//   gathered epilogue: gated_norm_finalize_bm (_gathered_kernel_bm) and
-//                      gated_norm_finalize (_gathered_kernel);
-//   phased epilogue:   phased_finalize_bm (_pfin_kernel_bm) and
-//                      phased_finalize (_epilogue_kernel);
-//   phased normalize:  phased_normalize (_epilogue_kernel with relu=False and
+//   gathered epilogue: gated_norm_finalize_bm and gated_norm_finalize;
+//   phased epilogue:   phased_finalize_bm and phased_finalize;
+//   phased normalize:  phased_normalize (the phased body with relu=False and
 //                      no gates): the phase gather and the InstanceNorm affine
 //                      alone, a = dtype(f32(y) * scale8 - shift8), the
 //                      normalized pre-activation that the phased block's
@@ -35,9 +33,8 @@
 // element (the phased forms only their 8 shifted n^3 windows of y_ext's
 // (n+1)^3 voxels) and writes the output once; the arithmetic is a few
 // flops per byte, far below the H100's ~295 bf16 flops/byte ridge. What
-// cost the first port's kernel (design kPerVoxel: one thread per 16-byte
-// vector of one voxel row, then exit) was instructions and L1 traffic per
-// byte and too few bytes in flight, so the persistent designs are:
+// bounds such a kernel is instructions and L1 traffic per byte and the
+// bytes in flight, so both designs are persistent:
 //   * persistent blocks of 256 threads walk output tiles in a fixed order:
 //     a tile is T voxels along x at one (b, z, y) (phased) or T rows of one
 //     batch entry (gathered), all 8C lanes; T from `tile_voxels` (about
@@ -49,25 +46,25 @@
 //     kernel: its scale8/shift8 lanes and its SE weight lanes sit in
 //     registers, reloaded only when the batch entry changes;
 //   * the gather reads y_ext either with 16-byte loads, kRows rows in
-//     flight per thread (design kLdg; phased reads ask L2 for the 256-byte
-//     block), or, for the phased form, through TMA (design kTma): per tile
-//     4 boxes of (T+1 voxels x 2C lanes), one per (a, b) row (lane blocks
-//     (a, b, 0) and (a, b, 1) are adjacent; c = 0 reads voxels 0..T-1 of
-//     the box, c = 1 voxels 1..T), into a kStages-deep mbarrier ring, so
-//     the next tiles' bytes are in flight while this one computes and
-//     stores;
+//     flight per thread (`persistent_ldg_kernel`; phased reads ask L2 for
+//     the 256-byte block), or, for the phased forms, through TMA
+//     (`persistent_tma_kernel`): per tile 4 boxes of (T+1 voxels x 2C
+//     lanes), one per (a, b) row (lane blocks (a, b, 0) and (a, b, 1) are
+//     adjacent; c = 0 reads voxels 0..T-1 of the box, c = 1 voxels 1..T),
+//     into a kStages-deep mbarrier ring, so the next tiles' bytes are in
+//     flight while this one computes and stores;
 //   * bf16 lanes go in pairs: one packed conversion per two lanes and
 //     e * gate as mul.rn.bf16x2, the same single rounding of the exact
 //     product; the C/V threads of one sub-position reduce a gate logit with
 //     warp shuffles, every lane taking part (rows past the tile's end
 //     compute on zeros); 16-byte stores.
-// The wrapper picks the design by shape before the launch
-// (ops/epilogue_s2d.py's `pick_design`, from the H100 timings in PERF.md):
-// TMA for the phased form where its box rows hold 128 bytes or more,
-// 16-byte loads for the other phased and the wider gathered calls, and
-// kPerVoxel where the new designs do not beat it. The kernels allocate
-// nothing, launch on the caller's stream and report launch errors through
-// cudaGetLastError().
+// The gathered form has one design, 16-byte loads. The phased forms take
+// TMA where a box row (2C lanes) holds 128 bytes or more and the strides
+// nest, so that a tensor map can describe y_ext, else 16-byte loads; the
+// wrapper decides by shape and strides before the launch
+// (ops/epilogue_s2d.py's `pick_design`) and passes the result as `tma`.
+// The kernels allocate nothing, launch on the caller's stream and report
+// launch errors through cudaGetLastError().
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -79,12 +76,10 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRows = 4;         // voxel rows a thread has in flight (kLdg)
+constexpr int kRows = 4;         // voxel rows a thread has in flight
 constexpr int kStages = 3;       // TMA ring depth
 constexpr int kMaxGates = 2;     // SE gates held in registers
 constexpr int kTileBytes = 16384;
-
-enum Design { kPerVoxel = 0, kLdg = 1, kTma = 2 };
 
 template <typename T> struct VecWidth;
 template <> struct VecWidth<float> { static constexpr int N = 4; };
@@ -102,76 +97,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 // round a float to T and back: the rounding points of the TPU kernel
 template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
-}
-
-// ------------------------------------------------ the first port's kernel
-
-template <typename T, bool kPhased, bool kActivate>
-__global__ void __launch_bounds__(kThreads) epilogue_kernel(
-    const T* __restrict__ y, int64_t sb, int64_t sz, int64_t sy, int64_t sx,
-    T* __restrict__ out, const float* __restrict__ scale8,
-    const float* __restrict__ shift8, const T* __restrict__ wse, int n_gates,
-    int64_t n_rows, int nz, int n, int c8, int log2_row, int log2_tpp) {
-  constexpr int V = VecWidth<T>::N;
-  const int c = c8 >> 3;
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const int64_t row = t >> log2_row;
-  const int j = static_cast<int>(t & ((1 << log2_row) - 1));
-  const bool valid = row < n_rows;
-  const int64_t r = valid ? row : 0;
-  const int p = j >> log2_tpp;                // sub-position (phase)
-  const int k = j & ((1 << log2_tpp) - 1);    // vector within the phase
-  const int col = p * c + k * V;              // first lane of this thread
-
-  const int64_t n3 = static_cast<int64_t>(nz) * n * n;
-  const int64_t b = r / n3;
-  const T* src;
-  if (kPhased) {
-    int64_t rem = r - b * n3;
-    const int64_t z = rem / (static_cast<int64_t>(n) * n);
-    rem -= z * n * n;
-    const int64_t yy = rem / n;
-    const int64_t x = rem - yy * n;
-    const int a = (p >> 2) & 1, bq = (p >> 1) & 1, cq = p & 1;
-    src = y + b * sb + (z + a) * sz + (yy + bq) * sy + (x + cq) * sx + col;
-  } else {
-    src = y + r * c8 + col;
-  }
-
-  uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-  if (valid) raw = *reinterpret_cast<const uint4*>(src);
-  const T* rv = reinterpret_cast<const T*>(&raw);
-  const float* sc = scale8 + b * c8 + col;
-  const float* sh = shift8 + b * c8 + col;
-
-  float e[V];
-#pragma unroll
-  for (int v = 0; v < V; ++v) {
-    float u = __fsub_rn(__fmul_rn(to_f32(rv[v]), sc[v]), sh[v]);
-    if (kActivate) u = u >= 0.f ? u : __fmul_rn(0.01f, u);
-    e[v] = round_to<T>(u);
-  }
-
-  for (int g = 0; g < n_gates; ++g) {
-    const T* wg = wse + g * c + k * V;
-    float part = 0.f;
-#pragma unroll
-    for (int v = 0; v < V; ++v) part = __fadd_rn(part, __fmul_rn(e[v], to_f32(wg[v])));
-    // every lane of the warp takes part (invalid rows compute on zeros)
-    for (int off = (1 << log2_tpp) >> 1; off > 0; off >>= 1)
-      part += __shfl_xor_sync(0xffffffffu, part, off);
-    const float gate = round_to<T>(1.f / (1.f + expf(-part)));
-#pragma unroll
-    for (int v = 0; v < V; ++v) e[v] = round_to<T>(__fmul_rn(e[v], gate));
-  }
-
-  if (valid) {
-    uint4 packed;
-    T* pv = reinterpret_cast<T*>(&packed);
-#pragma unroll
-    for (int v = 0; v < V; ++v) pv[v] = from_f32<T>(e[v]);
-    *reinterpret_cast<uint4*>(out + r * c8 + col) = packed;
-  }
 }
 
 // ------------------------------------------------ the persistent kernels
@@ -352,7 +277,7 @@ __device__ __forceinline__ uint4 ldg16(const void* p) {
   }
 }
 
-// kLdg: the gather by 16-byte loads, kRows rows in flight per thread.
+// The gather by 16-byte loads, kRows rows in flight per thread.
 template <typename T, bool kPhased, bool kActivate>
 __global__ void __launch_bounds__(kThreads) persistent_ldg_kernel(
     const T* __restrict__ y, T* __restrict__ out, const float* __restrict__ scale8,
@@ -449,7 +374,7 @@ __device__ __forceinline__ void fetch_tile(const CUtensorMap& map, int t, const 
   }
 }
 
-// kTma (phased form): the gather by TMA boxes into a kStages-deep ring;
+// The phased forms' gather by TMA boxes into a kStages-deep ring;
 // each thread reads its 16-byte vector of each row from shared memory.
 template <typename T, bool kActivate>
 __global__ void __launch_bounds__(kThreads) persistent_tma_kernel(
@@ -641,8 +566,10 @@ int launch_tma(const void* y, int64_t sb, int64_t sz, int64_t sy, int64_t sx, in
   return static_cast<int>(cudaGetLastError());
 }
 
+// tma: the phased forms' TMA design, where the wrapper found that a tensor
+// map can describe y_ext; else (and for the gathered form) 16-byte loads.
 template <typename T, bool kPhased, bool kActivate = true>
-int launch(int design, const void* y, int64_t sb, int64_t sz, int64_t sy, int64_t sx, int xw,
+int launch(bool tma, const void* y, int64_t sb, int64_t sz, int64_t sy, int64_t sx, int xw,
            void* out, const float* scale8, const float* shift8, const void* wse, int n_gates,
            int64_t batch, int nz, int n, int c8, cudaStream_t stream) {
   constexpr int V = VecWidth<T>::N;
@@ -653,14 +580,6 @@ int launch(int design, const void* y, int64_t sb, int64_t sz, int64_t sy, int64_
       (c8 / 8 / V) > 32 || n_gates < 0 || n_gates > kMaxGates || n < 1 || nz < 1 || batch < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t n3 = static_cast<int64_t>(nz) * n * n;
-  if (design == kPerVoxel) {
-    const int64_t threads = (batch * n3) << log2_row;
-    const int64_t blocks = (threads + kThreads - 1) / kThreads;
-    epilogue_kernel<T, kPhased, kActivate><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-        static_cast<const T*>(y), sb, sz, sy, sx, static_cast<T*>(out), scale8, shift8,
-        static_cast<const T*>(wse), n_gates, batch * n3, nz, n, c8, log2_row, log2_tpp);
-    return static_cast<int>(cudaGetLastError());
-  }
   Geo g;
   g.nz = nz;
   g.n = n;
@@ -677,72 +596,68 @@ int launch(int design, const void* y, int64_t sb, int64_t sz, int64_t sy, int64_
   g.sz = sz;
   g.sy = sy;
   g.sx = sx;
-  const T* yt = static_cast<const T*>(y);
   T* ot = static_cast<T*>(out);
   const T* wt = static_cast<const T*>(wse);
-  int grid = 0, rc = 0;
-  if (design == kLdg) {
-    auto kernel = persistent_ldg_kernel<T, kPhased, kActivate>;
-    if ((rc = persistent_grid(kernel, 0, g.n_tiles, grid))) return rc;
-    kernel<<<grid, kThreads, 0, stream>>>(yt, ot, scale8, shift8, wt, n_gates, g);
-    return static_cast<int>(cudaGetLastError());
-  }
   if constexpr (kPhased) {
-    if (design == kTma)
+    if (tma)
       return launch_tma<T, kActivate>(y, sb, sz, sy, sx, xw, batch, g, ot, scale8, shift8, wt,
                                       n_gates, stream);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = persistent_ldg_kernel<T, kPhased, kActivate>;
+  int grid = 0;
+  if (const int rc = persistent_grid(kernel, 0, g.n_tiles, grid)) return rc;
+  kernel<<<grid, kThreads, 0, stream>>>(static_cast<const T*>(y), ot, scale8, shift8, wt, n_gates,
+                                        g);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; design: 0 per-voxel, 1 persistent
-// 16-byte loads, 2 persistent TMA (phased forms only). Returns a
-// cudaError_t value. y is (B, nz, n, n, 8C), contiguous.
-extern "C" int airseg_gathered_epilogue(int dtype, int design, const void* y, void* out,
+// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t value. y is
+// (B, nz, n, n, 8C), contiguous.
+extern "C" int airseg_gathered_epilogue(int dtype, const void* y, void* out,
                                         const float* scale8, const float* shift8,
                                         const void* wse, int n_gates, long long batch,
                                         int nz, int n, int c8, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float, false>(design, y, 0, 0, 0, 0, 0, out, scale8, shift8, wse, n_gates,
+    return launch<float, false>(false, y, 0, 0, 0, 0, 0, out, scale8, shift8, wse, n_gates,
                                 batch, nz, n, c8, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16, false>(design, y, 0, 0, 0, 0, 0, out, scale8, shift8, wse,
+    return launch<__nv_bfloat16, false>(false, y, 0, 0, 0, 0, 0, out, scale8, shift8, wse,
                                         n_gates, batch, nz, n, c8, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // y_ext is (B, nz+1, n+1, xw, 8C) with element strides sb, sz, sy, sx; out
-// is (B, nz, n, n, 8C).
-extern "C" int airseg_phased_epilogue(int dtype, int design, const void* y_ext, long long sb,
+// is (B, nz, n, n, 8C). tma: 1 for the TMA design, 0 for 16-byte loads.
+extern "C" int airseg_phased_epilogue(int dtype, int tma, const void* y_ext, long long sb,
                                       long long sz, long long sy, long long sx, int xw,
                                       void* out, const float* scale8, const float* shift8,
                                       const void* wse, int n_gates, long long batch,
                                       int nz, int n, int c8, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float, true>(design, y_ext, sb, sz, sy, sx, xw, out, scale8, shift8, wse,
+    return launch<float, true>(tma != 0, y_ext, sb, sz, sy, sx, xw, out, scale8, shift8, wse,
                                n_gates, batch, nz, n, c8, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16, true>(design, y_ext, sb, sz, sy, sx, xw, out, scale8, shift8,
+    return launch<__nv_bfloat16, true>(tma != 0, y_ext, sb, sz, sy, sx, xw, out, scale8, shift8,
                                        wse, n_gates, batch, nz, n, c8, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Phase gather + InstanceNorm affine only (no LeakyReLU, no gates); the
-// same y_ext layout and strides as airseg_phased_epilogue.
-extern "C" int airseg_phased_normalize(int dtype, int design, const void* y_ext, long long sb,
+// same y_ext layout, strides and tma flag as airseg_phased_epilogue.
+extern "C" int airseg_phased_normalize(int dtype, int tma, const void* y_ext, long long sb,
                                        long long sz, long long sy, long long sx, int xw,
                                        void* out, const float* scale8, const float* shift8,
                                        long long batch, int nz, int n, int c8, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float, true, false>(design, y_ext, sb, sz, sy, sx, xw, out, scale8, shift8,
+    return launch<float, true, false>(tma != 0, y_ext, sb, sz, sy, sx, xw, out, scale8, shift8,
                                       nullptr, 0, batch, nz, n, c8, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16, true, false>(design, y_ext, sb, sz, sy, sx, xw, out, scale8,
+    return launch<__nv_bfloat16, true, false>(tma != 0, y_ext, sb, sz, sy, sx, xw, out, scale8,
                                               shift8, nullptr, 0, batch, nz, n, c8, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

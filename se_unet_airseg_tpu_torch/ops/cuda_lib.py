@@ -68,7 +68,7 @@ def _stream(t):
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # exported C functions: name -> argument types (all return int)
 _SIGNATURES = {
-    "airseg_gathered_epilogue": [_I, _I, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _P],
+    "airseg_gathered_epilogue": [_I, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _P],
     "airseg_phased_epilogue": [_I, _I, _P, _LL, _LL, _LL, _LL, _I, _P, _P, _P, _P, _I,
                                _LL, _I, _I, _I, _P],
     "airseg_epilogue_tma_smem": [_I, _I],

@@ -17,13 +17,13 @@ points on the inference and train paths are three CUDA kernels here
     (phased_normalize).
 
 The depth extent nz is n for a cube and n / n_space for a depth slab of
-the mesh's `space` axis. Each kernel has three designs (the first port's
-per-voxel kernel and two persistent ones, 16-byte loads or, for the
-phased forms, TMA); the
-wrapper picks one by shape before the launch (`pick_design`), and the
-persistent tile walk and TMA boxes are stated in plain Python beside it
-(`epilogue_tiles_plain`, `phased_tma_gather_plain`, `thread_rows_plain`)
-for the CPU tests. Each wrapper takes its plain PyTorch version
+the mesh's `space` axis. Each kernel is persistent: the gathered form
+reads with 16-byte loads, the phased forms with TMA or, where a tensor map
+cannot describe y_ext or its box rows are short, 16-byte loads. The
+wrappers take the design from the tensor's shape and strides before the
+launch (`pick_design`), and the tile walk and TMA boxes are stated in
+plain Python beside it (`epilogue_tiles_plain`, `phased_tma_gather_plain`,
+`thread_rows_plain`) for the CPU tests. Each wrapper takes its plain PyTorch version
 (`*_plain`) for a CPU tensor only; on a CUDA tensor it launches the
 kernel or raises. Each counts its launches in `cuda_lib.launch_counts`.
 
@@ -127,16 +127,6 @@ def phased_normalize_plain(y_ext, scale8, shift8):
 
 # ----------------------------------------------------------- tile walk
 
-# The kernels' designs (csrc/epilogue.cu `Design`), by name; TMA serves
-# the phased forms only.
-DESIGNS = {"per-voxel": 0, "persistent ldg": 1, "persistent tma": 2}
-
-
-def designs(phased: bool) -> tuple:
-    """The designs of the phased or the gathered form."""
-    return tuple(DESIGNS) if phased else ("per-voxel", "persistent ldg")
-
-
 TILE_BYTES = 16384
 
 
@@ -224,21 +214,15 @@ def _tma_strides_ok(y_ext) -> bool:
     return sx >= c8 and sy >= xw * sx and sz >= my * sy and sb >= mz * sz
 
 
-def pick_design(y, phased: bool, normalize: bool = False) -> str:
-    """The epilogue design for y, by shape, before the launch (from the
-    H100 timings in PERF.md). The persistent designs are kept where they
-    beat the first port's per-voxel kernel:
-      * gathered form: 16-byte loads for rows of at least 512 bytes; the
-        per-voxel kernel below (bf16 8C <= 128, where the two tie);
-      * phased form: TMA where its boxes' rows (2C lanes) hold at least
-        128 bytes and the tensor map can describe y_ext (nested strides);
-        else 16-byte loads, or for `phased_normalize` the per-voxel
-        kernel."""
-    if not phased:
-        return "persistent ldg" if y.shape[-1] * y.element_size() >= 512 else "per-voxel"
-    if y.shape[-1] // 4 * y.element_size() >= 128 and _tma_strides_ok(y):
+def pick_design(y, phased: bool) -> str:
+    """The persistent design that reads y, from its shape and strides
+    alone, before the launch: the gathered form has one, 16-byte loads;
+    the phased forms (`phased_epilogue`, `phased_normalize`) take TMA
+    where its boxes' rows (2C lanes) hold at least 128 bytes and a tensor
+    map can describe y_ext (nested strides), else 16-byte loads."""
+    if phased and y.shape[-1] // 4 * y.element_size() >= 128 and _tma_strides_ok(y):
         return "persistent tma"
-    return "per-voxel" if normalize else "persistent ldg"
+    return "persistent ldg"
 
 
 # ------------------------------------------------------------- wrappers
@@ -270,19 +254,10 @@ def _check_common(y, scale8, shift8, wse, c8):
     return vec
 
 
-def _design_code(y, phased: bool, design, normalize: bool = False) -> int:
-    design = design or pick_design(y, phased, normalize)
-    if design not in designs(phased):
-        raise ValueError(f"the {'phased' if phased else 'gathered'} form has no design "
-                         f"{design!r}")
-    return DESIGNS[design]
-
-
-def gathered_epilogue(y, scale8, shift8, wse=None, *, design=None):
+def gathered_epilogue(y, scale8, shift8, wse=None):
     """Gathered epilogue: y (B, nz, n, n, 8C) contiguous -> same shape
     (nz = n: a cube; a depth slab has nz < n). Replaces
-    gated_norm_finalize_bm / gated_norm_finalize. `design` (a key of
-    DESIGNS) overrides the shape's choice, for comparisons."""
+    gated_norm_finalize_bm / gated_norm_finalize."""
     if not _on_card(y):
         return gathered_epilogue_plain(y, scale8, shift8, wse)
     if y.dim() != 5 or y.shape[2] != y.shape[3] or not y.is_contiguous():
@@ -293,16 +268,16 @@ def gathered_epilogue(y, scale8, shift8, wse=None, *, design=None):
     out = torch.empty_like(y)
     with torch.cuda.device(y.device):
         launch("airseg_gathered_epilogue", "gathered_epilogue",
-               _DTYPE_CODE[y.dtype], _design_code(y, False, design), y.data_ptr(),
-               out.data_ptr(), scale8.data_ptr(), shift8.data_ptr(),
-               None if wse is None else wse.data_ptr(),
+               _DTYPE_CODE[y.dtype], y.data_ptr(), out.data_ptr(), scale8.data_ptr(),
+               shift8.data_ptr(), None if wse is None else wse.data_ptr(),
                0 if wse is None else wse.shape[0], b, nz, n, c8, _stream(y))
     return out
 
 
 def _check_phased(y_ext, scale8, shift8, wse):
     """Shape and stride checks of the phased kernels; returns
-    (B, nz, n, 8C, (sb, sz, sy, sx))."""
+    (B, nz, n, 8C, (sb, sz, sy, sx), tma), tma 1 where `pick_design`
+    takes TMA."""
     if y_ext.dim() != 5 or y_ext.shape[3] < y_ext.shape[2] or y_ext.stride(4) != 1:
         raise ValueError(f"y_ext must be (B, nz+1, n+1, xw>=n+1, 8C) with unit "
                          f"channel stride, got {tuple(y_ext.shape)}")
@@ -311,40 +286,40 @@ def _check_phased(y_ext, scale8, shift8, wse):
     strides = tuple(y_ext.stride(i) for i in range(4))
     if any(s % vec for s in strides):
         raise ValueError("y_ext strides must be multiples of 16 bytes")
-    return b, mz - 1, m - 1, c8, strides
+    tma = int(pick_design(y_ext, True) == "persistent tma")
+    return b, mz - 1, m - 1, c8, strides, tma
 
 
-def phased_epilogue(y_ext, scale8, shift8, wse=None, *, design=None):
+def phased_epilogue(y_ext, scale8, shift8, wse=None):
     """Phased epilogue: y_ext (B, nz+1, n+1, xw, 8C), xw >= n+1, any
     16-byte-aligned strides with a unit channel stride -> gathered
-    (B, nz, n, n, 8C). Replaces phased_finalize_bm / phased_finalize.
-    `design` as for `gathered_epilogue`."""
+    (B, nz, n, n, 8C). Replaces phased_finalize_bm / phased_finalize."""
     if not _on_card(y_ext):
         return phased_epilogue_plain(y_ext, scale8, shift8, wse)
-    b, nz, n, c8, (sb, sz, sy, sx) = _check_phased(y_ext, scale8, shift8, wse)
+    b, nz, n, c8, (sb, sz, sy, sx), tma = _check_phased(y_ext, scale8, shift8, wse)
     out = torch.empty((b, nz, n, n, c8), dtype=y_ext.dtype, device=y_ext.device)
     with torch.cuda.device(y_ext.device):
         launch("airseg_phased_epilogue", "phased_epilogue",
-               _DTYPE_CODE[y_ext.dtype], _design_code(y_ext, True, design), y_ext.data_ptr(),
-               sb, sz, sy, sx, y_ext.shape[3], out.data_ptr(), scale8.data_ptr(),
+               _DTYPE_CODE[y_ext.dtype], tma, y_ext.data_ptr(), sb, sz, sy, sx,
+               y_ext.shape[3], out.data_ptr(), scale8.data_ptr(),
                shift8.data_ptr(), None if wse is None else wse.data_ptr(),
                0 if wse is None else wse.shape[0], b, nz, n, c8, _stream(y_ext))
     return out
 
 
-def phased_normalize(y_ext, scale8, shift8, *, design=None):
+def phased_normalize(y_ext, scale8, shift8):
     """Phase gather + InstanceNorm affine only: y_ext as for
     `phased_epilogue` -> a (B, nz, n, n, 8C) = dtype(y * scale8 - shift8).
-    Replaces phased_normalize. `design` as for `gathered_epilogue`."""
+    Replaces phased_normalize."""
     if not _on_card(y_ext):
         return phased_normalize_plain(y_ext, scale8, shift8)
-    b, nz, n, c8, (sb, sz, sy, sx) = _check_phased(y_ext, scale8, shift8, None)
+    b, nz, n, c8, (sb, sz, sy, sx), tma = _check_phased(y_ext, scale8, shift8, None)
     out = torch.empty((b, nz, n, n, c8), dtype=y_ext.dtype, device=y_ext.device)
     with torch.cuda.device(y_ext.device):
         launch("airseg_phased_normalize", "phased_normalize",
-               _DTYPE_CODE[y_ext.dtype], _design_code(y_ext, True, design, normalize=True),
-               y_ext.data_ptr(), sb, sz, sy, sx, y_ext.shape[3], out.data_ptr(),
-               scale8.data_ptr(), shift8.data_ptr(), b, nz, n, c8, _stream(y_ext))
+               _DTYPE_CODE[y_ext.dtype], tma, y_ext.data_ptr(), sb, sz, sy, sx,
+               y_ext.shape[3], out.data_ptr(), scale8.data_ptr(), shift8.data_ptr(), b, nz,
+               n, c8, _stream(y_ext))
     return out
 
 

@@ -39,7 +39,6 @@ import torch
 from ..parallel.mesh import halo, space_sum
 from .conv import conv3d
 from .cuda_lib import launch
-from .norms import leaky_relu
 from .resize import _interp_matrix, contract_axis, slab_matrix
 
 
@@ -413,24 +412,3 @@ def phase_windows(y_ext: torch.Tensor) -> list:
         y_ext[:, a : a + nz, bb : bb + n, c : c + n, q * co : (q + 1) * co]
         for q, (a, bb, c) in enumerate(product(range(2), repeat=3))
     ]
-
-
-def conv3_s2d_phased_fused(xs, w_all: torch.Tensor,
-                           b_all: torch.Tensor | None, eps: float = 1e-5):
-    """Phased conv + InstanceNorm + LeakyReLU: statistics from the conv's
-    (n+1)^3 phase windows, normalize+activate per window inside the
-    final concat. `xs` is one s2d tensor or a list forming a plain
-    concat."""
-    xs = list(xs) if isinstance(xs, (list, tuple)) else [xs]
-    n = xs[0].shape[1]
-    slices = phase_windows(phased_conv_ext(xs, w_all, b_all))
-    s1 = sum(sl.to(torch.float32).sum(dim=(1, 2, 3)) for sl in slices)
-    s2 = sum(torch.square(sl.to(torch.float32)).sum(dim=(1, 2, 3)) for sl in slices)
-    nvox = 8 * n * n * n
-    mean = s1 / nvox
-    var = torch.clamp(s2 / nvox - torch.square(mean), min=0.0)
-    scale = torch.rsqrt(var + eps)[:, None, None, None, :]
-    shift = mean[:, None, None, None, :] * scale
-    acts = [leaky_relu(sl.to(torch.float32) * scale - shift).to(xs[0].dtype)
-            for sl in slices]
-    return torch.cat(acts, dim=-1)

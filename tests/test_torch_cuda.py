@@ -541,59 +541,74 @@ def test_instance_norm_leaky_kernels_match_plain(dev, dtype, b, s, c):
             torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("design", ["persistent ldg", "persistent tma", "per-voxel"])
+def _zy_swapped(y):
+    """y's values in a layout whose z stride is below its y stride: no TMA
+    map describes it, so the phased forms take 16-byte loads."""
+    return y.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+@pytest.mark.parametrize("swap", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,n,c8,gates,xw", [(1, 65, 128, 1, None), (3, 33, 256, 2, 40),
                                              (1, 9, 512, 2, None), (3, 5, 64, 0, 9),
-                                             (1, 33, 512, 1, None)])
-def test_persistent_epilogue_designs_match_plain(dev, design, dtype, b, n, c8, gates, xw):
-    """Every design at ragged tiles (no T divides n), xw > n+1 and 0/1/2
-    gates: phased epilogue and normalize (exact), and the gathered form
-    (which has no TMA design: 16-byte loads in its place)."""
+                                             (1, 33, 512, 1, None), (2, 17, 64, 1, None),
+                                             (2, 9, 128, 2, 12)])
+def test_persistent_epilogue_designs_match_plain(dev, swap, dtype, b, n, c8, gates, xw):
+    """Each design, reached by shape and strides, at ragged tiles (no T
+    divides n), xw > n+1 and 0/1/2 gates: phased epilogue and normalize
+    (exact) on y_ext as made (TMA where its box rows hold 128 bytes) and
+    with z and y strides swapped (16-byte loads), and the gathered form,
+    whose one design serves every width (8C = 64 and 128 included)."""
     y, scale8, shift8, wse = _inputs(dev, dtype, b, n + 1, c8, gates, xw=xw, seed=n)
-    got = eps.phased_epilogue(y, scale8, shift8, wse, design=design)
+    if swap:
+        y = _zy_swapped(y)
+        assert eps.pick_design(y, True) == "persistent ldg"
+    got = eps.phased_epilogue(y, scale8, shift8, wse)
     torch.testing.assert_close(got, eps.phased_epilogue_plain(y, scale8, shift8, wse),
                                **TOL[dtype])
-    got = eps.phased_normalize(y, scale8, shift8, design=design)
+    got = eps.phased_normalize(y, scale8, shift8)
     torch.testing.assert_close(got, eps.phased_normalize_plain(y, scale8, shift8),
                                rtol=0, atol=0)
     yg = y[:, :n, :n, :n].contiguous()
-    gdesign = design if design in eps.designs(False) else "persistent ldg"
-    got = eps.gathered_epilogue(yg, scale8, shift8, wse, design=gdesign)
+    got = eps.gathered_epilogue(yg, scale8, shift8, wse)
     torch.testing.assert_close(got, eps.gathered_epilogue_plain(yg, scale8, shift8, wse),
                                **TOL[dtype])
 
 
-@pytest.mark.parametrize("design", ["persistent ldg", "persistent tma", "per-voxel"])
+@pytest.mark.parametrize("swap", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,nz,n,c8,gates,xw", [(8, 32, 64, 256, 1, None),
                                                 (8, 16, 32, 512, 2, None),
                                                 (2, 3, 33, 256, 2, 40), (1, 1, 9, 128, 1, None),
                                                 (3, 2, 5, 64, 0, 9)])
-def test_epilogue_designs_on_depth_slabs_match_plain(dev, design, dtype, b, nz, n, c8, gates,
+def test_epilogue_designs_on_depth_slabs_match_plain(dev, swap, dtype, b, nz, n, c8, gates,
                                                      xw):
-    """K1, K2 and K5 on a depth slab of the mesh's `space` axis, every
-    design: the phased forms read y_ext (B, nz+1, n+1, xw, 8C) (the window
-    grid of a halo'd phased conv), the gathered form (B, nz, n, n, 8C); at
-    the model's slab shapes of 128^3 crops on 2 ranks (dc5 at the full
-    grid, dc3 at the 1/2 grid) and ragged ones."""
+    """K1, K2 and K5 on a depth slab of the mesh's `space` axis, each
+    design by shape and strides (`swap`: 16-byte loads, as in
+    test_persistent_epilogue_designs_match_plain): the phased forms read
+    y_ext (B, nz+1, n+1, xw, 8C) (the window grid of a halo'd phased
+    conv), the gathered form (B, nz, n, n, 8C); at the model's slab shapes
+    of 128^3 crops on 2 ranks (dc5 at the full grid, dc3 at the 1/2 grid)
+    and ragged ones."""
     g = torch.Generator(device=dev).manual_seed(nz * n)
     y = torch.randn((b, nz + 1, n + 1, xw or n + 1, c8), generator=g, device=dev).to(dtype)
     scale8 = 0.5 + torch.rand((b, c8), generator=g, device=dev)
     shift8 = 0.3 * torch.randn((b, c8), generator=g, device=dev)
     wse = (0.1 * torch.randn((gates, c8 // 8), generator=g, device=dev)).to(dtype) \
         if gates else None
+    if swap:
+        y = _zy_swapped(y)
+        assert eps.pick_design(y, True) == "persistent ldg"
     reset_launch_counts()
-    got = eps.phased_epilogue(y, scale8, shift8, wse, design=design)
+    got = eps.phased_epilogue(y, scale8, shift8, wse)
     assert got.shape == (b, nz, n, n, c8)
     torch.testing.assert_close(got, eps.phased_epilogue_plain(y, scale8, shift8, wse),
                                **TOL[dtype])
-    got = eps.phased_normalize(y, scale8, shift8, design=design)
+    got = eps.phased_normalize(y, scale8, shift8)
     torch.testing.assert_close(got, eps.phased_normalize_plain(y, scale8, shift8),
                                rtol=0, atol=0)
     yg = y[:, :nz, :n, :n].contiguous()
-    gdesign = design if design in eps.designs(False) else "persistent ldg"
-    got = eps.gathered_epilogue(yg, scale8, shift8, wse, design=gdesign)
+    got = eps.gathered_epilogue(yg, scale8, shift8, wse)
     torch.cuda.synchronize()
     assert launch_counts == _counts(gathered_epilogue=1, phased_epilogue=1, phased_normalize=1)
     torch.testing.assert_close(got, eps.gathered_epilogue_plain(yg, scale8, shift8, wse),
@@ -664,16 +679,6 @@ def test_tma_epilogue_rings_of_several_sizes_in_turn(dev):
         got = eps.phased_epilogue(y, scale8, shift8, wse)
         torch.testing.assert_close(got, eps.phased_epilogue_plain(y, scale8, shift8, wse),
                                    **TOL[torch.bfloat16])
-
-
-def test_gathered_epilogue_has_no_tma_design(dev):
-    """TMA serves the phased forms only; asking the gathered form for it
-    raises before any launch."""
-    y, scale8, shift8, wse = _inputs(dev, torch.bfloat16, 1, 4, 256, 1)
-    reset_launch_counts()
-    with pytest.raises(ValueError):
-        eps.gathered_epilogue(y, scale8, shift8, wse, design="persistent tma")
-    assert launch_counts["gathered_epilogue"] == 0
 
 
 def _fwd_check(dtype, y, rstd, x):

@@ -128,10 +128,12 @@ def test_gated_norm_block_matches_jax(b, gates):
 
 
 @pytest.mark.parametrize("b,cis,gates", [(2, (128,), 1), (2, (64, 64), 2),
-                                         (8, (64, 64), 1)])
+                                         (8, (64, 64), 1), (2, (16, 24), 1),
+                                         (2, (16, 24), 2)])
 def test_phased_gated_block_matches_jax(b, cis, gates):
     """Phased conv + window statistics + phased epilogue: B=2 reaches K4
-    (through phased_gated_block), B=8 K2 (through the tbm block)."""
+    (through phased_gated_block), B=8 K2 (through the tbm block); the
+    (16, 24) cases a concat of two unequal inputs."""
     r = np.random.default_rng(50 + b + gates)
     n, co = 8, 16
     w = r.standard_normal((3, 3, 3, sum(cis) // 8, co)).astype(np.float32) * 0.1

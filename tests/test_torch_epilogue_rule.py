@@ -98,12 +98,12 @@ def test_every_row_and_lane_of_a_tile_is_one_threads(c8, elt, phased):
 
 
 def test_design_is_chosen_by_shape():
-    """The phased form takes TMA where its box rows (2C lanes) hold at
+    """The phased forms take TMA where its box rows (2C lanes) hold at
     least 128 bytes and the strides nest; a view whose z stride is below
-    its y stride and the bf16 8C = 128 form take 16-byte loads
-    (`phased_normalize`: the per-voxel kernel); the gathered form takes
-    16-byte loads from 512-byte rows, the per-voxel kernel below. The
-    plain version of the swapped view is still the phase gather."""
+    its y stride and the bf16 8C = 128 form take 16-byte loads, the same
+    for `phased_epilogue` and `phased_normalize`; the gathered form has
+    one design, 16-byte loads, at every width. The plain version of the
+    swapped view is still the phase gather."""
     n = 5
     y_ext = _y_ext(1, n, 128, n + 3, 1)
     assert eps.pick_design(y_ext, True) == "persistent tma"
@@ -112,14 +112,12 @@ def test_design_is_chosen_by_shape():
     assert eps.pick_design(_y_ext(1, n, 256, n + 1, 2).to(torch.bfloat16), True) == \
         "persistent tma"
     gathered = y_ext[:, :n, :n, :n].contiguous()
-    assert eps.pick_design(gathered, False) == "persistent ldg"  # f32, 8C = 128: 512 B
-    assert eps.pick_design(gathered.to(torch.bfloat16), False) == "per-voxel"
+    for c8 in (64, 128, 256, 512):
+        for dtype in (torch.float32, torch.bfloat16):
+            g = gathered[..., :1].expand(-1, -1, -1, -1, c8).contiguous().to(dtype)
+            assert eps.pick_design(g, False) == "persistent ldg"
     swapped = y_ext.transpose(1, 2)
     assert eps.pick_design(swapped, True) == "persistent ldg"
-    # phased_normalize keeps the first port's kernel where TMA does not apply
-    narrow = y_ext.to(torch.bfloat16)
-    assert eps.pick_design(narrow, True, normalize=True) == "per-voxel"
-    assert eps.pick_design(y_ext, True, normalize=True) == "persistent tma"
     scale8, shift8 = torch.ones(1, 128), torch.zeros(1, 128)
     got = eps.phased_normalize(swapped, scale8, shift8)
     torch.testing.assert_close(got, torch.cat(phase_windows(swapped), dim=-1), rtol=0, atol=0)

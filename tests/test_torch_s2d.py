@@ -131,16 +131,3 @@ def test_phased_conv_weights(splits):
     wp, bp = ps.phased_conv_weights(_t(w), _t(b), splits)
     _close(wp, wj)
     _close(bp, bj, atol=0, rtol=0)
-
-
-@pytest.mark.parametrize("cis", [(32,), (16, 24)])
-def test_conv3_s2d_phased_fused(cis):
-    n, co = 4, 4
-    w, b = _rand(22, (3, 3, 3, sum(cis) // 8, co), 0.3), _rand(23, (co,))
-    splits = tuple(c // 8 for c in cis) if len(cis) > 1 else None
-    xs = [_rand(24 + i, (2, n, n, n, c)) for i, c in enumerate(cis)]
-    wj, bj = js.phased_conv_weights(jnp.asarray(w), jnp.asarray(b), splits)
-    wp, bp = ps.phased_conv_weights(_t(w), _t(b), splits)
-    ref = js.conv3_s2d_phased_fused([jnp.asarray(x) for x in xs], wj, bj)
-    _close(ps.conv3_s2d_phased_fused([_t(x) for x in xs], wp, bp), ref,
-           atol=2e-5, rtol=1e-4)
